@@ -12,6 +12,8 @@ def pytest_addoption(parser):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: slow end-to-end test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips elsewhere")
 
 
 def pytest_collection_modifyitems(config, items):

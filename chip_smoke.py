@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU and
-check it: the quickest proof that the port builds and serves on the card.
+check it: the quickest proof that the port builds, serves and trains on
+the card.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -8,15 +9,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions, and the float32 matmul setting (TF32 off).
-2. Build: both CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
-   nvcc for sm_90a, into the git-ignored build directory.
+2. Build: the three CUDA sources under ``src/repro_torch/kernels/*/csrc``
+   (rmsnorm, decode_attention, coded_combine), one nvcc each, started
+   together, for sm_90a into the git-ignored build directory.
 3. Kernels: each kernel against its plain PyTorch version on the card,
    in the working dtype, at the serving path's shapes and a few more,
    with the repository's tolerances (bf16 atol = rtol = 3e-2, f32 2e-5);
    kernel, plain and library-call device times (CUDA-graph replays
    between CUDA events), the wrapper's per-call time, and the least
    time the card could take (bytes over 3.35 TB/s, or operations over
-   the peak rate of the inputs' type, whichever is larger).
+   the peak rate of the inputs' type, whichever is larger). The three
+   combines (coded_combine, quantized_combine, packed_sign_combine) at
+   the training path's shapes (n = 4 rows of D = 104,857,600, the
+   stacked ``wi_gate`` leaf, and D = 8,192, the stacked norm scales),
+   at odd widths (D = 1, 7, 9, 1,000,003), and on exact inputs (integer
+   payloads, power-of-two weights and scales, a dead row), where the
+   comparison is bitwise and also against the float64 NumPy oracles.
 4. The serving path: ``repro_torch.launch.serve.main`` at granite-3-8b's
    full config (40 layers, d_model 4096, GQA 32/8), 16 requests on 8
    slots, coded prefill over the expander, ``--check`` against the
@@ -26,7 +34,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    teacher-forced decode steps through the kernels and through the plain
    versions: equal to 1e-3 in float32, and in bf16 no farther from the
    float32 logits than twice the plain version's bf16 error.
-5. A ``kernels`` JSON line, then the card line, then the result line.
+5. The training path: ``repro_torch.launch.train.main`` at granite-3-8b's
+   full width with 2 layers (bf16 activations, float32 parameters and
+   AdamW at lr 1e-4), m = 4 machines, expander d = 2, Bernoulli
+   p = 0.2, sequences of 256 tokens in blocks of 4, 12 steps, four
+   runs: the dedup path with no compression, with int8 and with
+   sign_packed, and the manual collective. Launch counts are zeroed
+   before each run and read after: one combine launch per parameter
+   leaf and step (12 leaves: the LM head is untied) on the run that uses
+   that combine and none elsewhere, and 5 rmsnorm launches per forward
+   pass. The driver asserts that the loss decreased. Each run is
+   repeated through the plain versions (``_FORCE = "ref"``) and the two
+   loss streams must agree to ``LOSS_RTOL``. Then one float32 SGD step:
+   the manual collective through coded_combine against the dedup path
+   through autograd, on the same parameters, weights and batch, the
+   parameters equal to rtol 2e-4 and atol 2e-5. Each phase's seconds
+   are printed.
+6. A ``kernels`` JSON line (K1-K5), then the card line, then the result
+   line.
 """
 
 import json
@@ -42,6 +67,25 @@ TOL = {"bfloat16": dict(atol=3e-2, rtol=3e-2),
        "float32": dict(atol=2e-5, rtol=2e-5)}
 F32_MODEL_TOL = dict(atol=1e-3, rtol=1e-3)   # f32 logits after 40 layers
 BF16_NOISE_FACTOR = 2.0
+# The combines on general inputs: kernel and plain version do the same
+# rounded multiplies and adds in the same row order, so the error is
+# expected to be 0; the tolerance is float32 rounding of one partial sum.
+COMBINE_TOL = dict(atol=1e-6, rtol=1e-6)
+PATH_D = (104_857_600, 8_192)
+ODD_D = (1, 7, 9, 1_000_003)
+COMBINE_ROWS = 4
+COMBINES = ("coded_combine", "quantized_combine", "packed_sign_combine")
+# Training: loss streams through the kernels vs the plain versions.
+LOSS_RTOL = 1e-2
+F32_STEP_TOL = dict(rtol=2e-4, atol=2e-5)
+TRAIN_ARGS = ["--steps", "12", "--seq-len", "256", "--block-size", "4",
+              "--machines", "4", "--scheme", "expander", "--replication",
+              "2", "--straggler-model", "bernoulli", "--straggler-p",
+              "0.2", "--lr", "1e-4", "--log-every", "4", "--seed", "0"]
+TRAIN_RUNS = (("dedup none", []),
+              ("dedup int8", ["--compress", "int8"]),
+              ("dedup sign_packed", ["--compress", "sign_packed"]),
+              ("manual none", ["--collective", "manual"]))
 SERVE_ARGS = ["--arch", "granite-3-8b", "--full-config", "--requests",
               "16", "--slots", "8", "--prompt-len", "128",
               "--prompt-spread", "32", "--max-new-tokens", "32",
@@ -52,12 +96,16 @@ def _say(tag, **kw):
     print(f"{tag} {json.dumps(kw)}", flush=True)
 
 
-def _times(torch, kernel, plain, library):
+def _times(torch, kernel, plain, library, reps=20):
     """Device ms per call of each (CUDA-graph replays), and the wrapper's
-    host ms per call of the kernel."""
+    host ms per call of the kernel. ``library`` may be None: no single
+    PyTorch call computes the function."""
     from repro_torch.launch.timing import call_ms, graph_ms
-    return dict(kernel_ms=graph_ms(kernel), plain_ms=graph_ms(plain),
-                library_ms=graph_ms(library), kernel_call_ms=call_ms(kernel))
+    return dict(kernel_ms=graph_ms(kernel, reps=reps),
+                plain_ms=graph_ms(plain, reps=reps),
+                library_ms=(None if library is None
+                            else graph_ms(library, reps=reps)),
+                kernel_call_ms=call_ms(kernel))
 
 
 def _bound_ms(nbytes, flops, dtype):
@@ -152,6 +200,284 @@ def check_beyond_length(torch, dev):
         raise AssertionError("decode_attention reads past lengths[b]")
     _say("kernel_check", name="decode_attention ignores values beyond "
          "lengths[b]", ok=True)
+
+
+def _combine_inputs(torch, dev, kind, d, dtype, exact, seed):
+    """(payload, scales, w) for one combine. Exact inputs: integer
+    payloads, power-of-two weights and scales, so every float32 partial
+    sum is exact; both kinds carry a dead row (w = 0)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = COMBINE_ROWS
+    if exact:
+        w = 2.0 ** torch.randint(-3, 3, (n,), generator=g,
+                                 device=dev).float()
+        scales = 2.0 ** torch.randint(-4, 2, (n,), generator=g,
+                                      device=dev).float()
+    else:
+        w = torch.rand(n, generator=g, device=dev) * 2
+        scales = torch.rand(n, generator=g, device=dev) + 0.01
+    w[n // 2] = 0.0
+    if kind == "packed_sign_combine":
+        x = torch.randint(0, 256, (n, (d + 7) // 8), generator=g,
+                          device=dev, dtype=torch.uint8)
+    elif dtype == "int8":
+        x = torch.randint(-127, 128, (n, d), generator=g, device=dev,
+                          dtype=torch.int8)
+    elif exact:
+        x = torch.randint(-127, 128, (n, d), generator=g, device=dev,
+                          dtype=torch.int32).to(getattr(torch, dtype))
+    else:
+        x = torch.randn(n, d, generator=g, device=dev).to(
+            getattr(torch, dtype))
+    return x, scales, w
+
+
+def check_combine(torch, dev, kind, d, dtype, exact, time_it=True):
+    """One combine against its plain version on the card: bitwise on
+    exact inputs (and against the float64 NumPy oracle of the quantized
+    combines up to D = 1,000,003), else within COMBINE_TOL."""
+    import numpy as np
+    from repro_torch.kernels.coded_combine import ops, ref
+    x, scales, w = _combine_inputs(torch, dev, kind, d, dtype, exact,
+                                   seed=d % 1000 + 7 * exact)
+    if kind == "coded_combine":
+        args, plain = (x, w), ref.coded_combine
+    elif kind == "quantized_combine":
+        args, plain = (x, scales, w), ref.quantized_combine
+    else:
+        args = (x, scales, w, d)
+        plain = ref.packed_sign_combine
+    fn = getattr(ops, kind)
+    out, want = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    label = f"{kind} n={COMBINE_ROWS} D={d} {dtype}" + \
+        (" exact" if exact else "")
+    err = (out.float() - want.float()).abs().max().item()
+    if exact:
+        if not torch.equal(out, want):
+            raise AssertionError(f"{label}: kernel differs from its plain "
+                                 f"version on exact inputs (max {err})")
+        if kind != "coded_combine" and d <= 1_000_003:
+            xs, ss, ws = (a.cpu().numpy() for a in (x, scales, w))
+            oracle = (ref.quantized_combine_np(xs, ss, ws)
+                      if kind == "quantized_combine"
+                      else ref.packed_sign_combine_np(xs, ss, ws, d))
+            if not np.array_equal(out.cpu().numpy(), oracle):
+                raise AssertionError(f"{label}: kernel differs from the "
+                                     "float64 NumPy oracle")
+        # the dead row's payload must not matter: replace it, same bits
+        x2 = x.clone()
+        x2[COMBINE_ROWS // 2] = x2[0]
+        if not torch.equal(fn(x2, *args[1:]), out):
+            raise AssertionError(f"{label}: a dead row changed the output")
+    else:
+        _compare(torch, out, want, COMBINE_TOL, label)
+    row = dict(kernel=kind, shape=label, dtype=dtype, max_abs_err=err,
+               exact=exact)
+    if time_it:
+        out_bytes = d * out.element_size()
+        nbytes = x.numel() * x.element_size() + out_bytes + 8 * COMBINE_ROWS
+        bound, by = _bound_ms(nbytes, 2 * COMBINE_ROWS * d, "float32")
+        library = None
+        if kind == "coded_combine":
+            wl = w.to(x.dtype)
+            library = lambda: torch.mv(x.t(), wl)  # noqa: E731
+        row.update(bound_ms=bound, bound_by=by, **_times(
+            torch, lambda: fn(*args), lambda: plain(*args), library,
+            reps=4 if d > 10_000_000 else 20))
+    _say("kernel", **row)
+    return row
+
+
+def combine_checks(torch, dev):
+    """The three combines at the path shapes, odd widths and on exact
+    inputs; returns the timed path-shape rows by kernel name."""
+    rows = {}
+    for kind in COMBINES:
+        dtypes = {"coded_combine": ("float32", "bfloat16"),
+                  "quantized_combine": ("int8", "float32"),
+                  "packed_sign_combine": ("uint8",)}[kind]
+        for d in PATH_D:
+            for i, dt in enumerate(dtypes):
+                r = check_combine(torch, dev, kind, d, dt, exact=False)
+                if d == PATH_D[0] and i == 0:
+                    rows[kind] = r
+                check_combine(torch, dev, kind, d, dt, exact=True,
+                              time_it=False)
+        for d in ODD_D:
+            for dt in dtypes:
+                check_combine(torch, dev, kind, d, dt, exact=False)
+                check_combine(torch, dev, kind, d, dt, exact=True,
+                              time_it=False)
+    check_width_mismatch(torch, dev)
+    return rows
+
+
+def check_width_mismatch(torch, dev):
+    from repro_torch.kernels.coded_combine import ops
+    before = dict(ops.launches)
+    q = torch.zeros(2, 3, dtype=torch.uint8, device=dev)
+    one = torch.ones(2, device=dev)
+    try:
+        ops.packed_sign_combine(q, one, one, 25)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("packed_sign_combine took a payload of the "
+                             "wrong width")
+    if ops.launches != before:
+        raise AssertionError("a refused width still launched")
+    _say("kernel_check", name="packed_sign_combine refuses a width other "
+         "than ceil(d/8) before launching", ok=True)
+
+
+def _run_train(torch, cfg, extra, force):
+    """One driver run with every count zeroed just before and read just
+    after; ``force`` is the ops modules' ``_FORCE``."""
+    import gc
+    from repro_torch.kernels.coded_combine import ops as cc_ops
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.launch import train as launch_train
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rn_ops._FORCE = cc_ops._FORCE = force
+    rn_ops.launches = da_ops.launches = 0
+    cc_ops.launches = dict.fromkeys(cc_ops.launches, 0)
+    t0 = time.perf_counter()
+    try:
+        summary = launch_train.main(TRAIN_ARGS + extra, cfg=cfg)
+    finally:
+        rn_ops._FORCE = cc_ops._FORCE = None
+    wall = time.perf_counter() - t0
+    counts = {"rmsnorm": rn_ops.launches,
+              "decode_attention": da_ops.launches, **cc_ops.launches}
+    return summary, counts, wall, torch.cuda.max_memory_allocated()
+
+
+def train_runs(torch, dev):
+    """The four training runs, each through the kernels and then through
+    the plain versions; returns the kernel runs' launch counts."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import param_shapes
+    cfg = get_config("granite-3-8b").with_overrides(n_layers=2)
+    n_leaves = len(param_shapes(cfg))   # one combine launch per leaf
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    totals = {}
+    for label, extra in TRAIN_RUNS:
+        s, counts, wall, peak = _run_train(torch, cfg, extra, None)
+        manual = "manual" in extra
+        codec = extra[extra.index("--compress") + 1] \
+            if "--compress" in extra else "none"
+        rows = 4   # n blocks on the dedup path, m machines on the manual
+        forwards = rows if (manual or codec != "none") else 1
+        want = {"rmsnorm": 5 * forwards * steps, "decode_attention": 0,
+                "coded_combine": n_leaves * steps if manual else 0,
+                "quantized_combine": (n_leaves * steps
+                                      if codec == "int8" else 0),
+                "packed_sign_combine": (n_leaves * steps
+                                        if codec == "sign_packed" else 0)}
+        if counts != want:
+            raise AssertionError(f"train {label}: launch counts {counts} "
+                                 f"!= {want}")
+        r, rcounts, rwall, _ = _run_train(torch, cfg, extra, "ref")
+        if any(rcounts.values()):
+            raise AssertionError(f"train {label}: the plain run launched "
+                                 f"kernels {rcounts}")
+        got, ref_l = (np.asarray(x["losses"]) for x in (s, r))
+        if got.shape != (steps,) or not np.isfinite(got).all():
+            raise AssertionError(f"train {label}: bad loss stream {got}")
+        gap = float(np.max(np.abs(got - ref_l) / np.abs(ref_l)))
+        if not gap <= LOSS_RTOL:
+            raise AssertionError(
+                f"train {label}: kernel and plain loss streams differ by "
+                f"{gap} relative (> {LOSS_RTOL})")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        _say("train", run=label, arch=cfg.name, n_layers=cfg.n_layers,
+             d_model=cfg.d_model, dtype=cfg.dtype, path=s["path"],
+             collective=s["collective"], compress=s["compress"],
+             steps=steps, losses=s["losses"], plain_losses=r["losses"],
+             loss_rel_gap=gap, loss_rtol=LOSS_RTOL, launches=counts,
+             ms_per_step=s["loop_s"] / steps * 1e3,
+             plain_ms_per_step=r["loop_s"] / steps * 1e3,
+             wall_s=wall, plain_wall_s=rwall, peak_mem_gb=peak / 1e9,
+             comm_bytes_per_step=s["comm_bytes_per_step"],
+             decode_calls=s["decode_calls"])
+    return totals
+
+
+def f32_manual_vs_autograd(torch, dev):
+    """One float32 SGD step at granite-3-8b's width, 2 layers: the manual
+    collective (per-machine gradients through coded_combine) against the
+    dedup path (autograd's fused combine), same parameters, weights and
+    batch."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.configs import CodingConfig, get_config
+    from repro_torch.core import step_weights as sw
+    from repro_torch.data.pipeline import CodedBatcher, SyntheticLM
+    from repro_torch.dist import coded_train
+    from repro_torch.kernels.coded_combine import ops as cc_ops
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import param_shapes
+    from repro_torch.optim import optimizers as opt_mod
+    cfg = get_config("granite-3-8b").with_overrides(n_layers=2,
+                                                    dtype="float32")
+    n_leaves = len(param_shapes(cfg))
+    A = coded_train.make_assignment(CodingConfig(replication=2), 4)
+    batcher = CodedBatcher(A, shuffle_seed=0)
+    raw = SyntheticLM(cfg.vocab_size, 256, seed=0).batch(A.n * 4, 0)
+    coded = {k: torch.from_numpy(v).to(dev)
+             for k, v in batcher.code_batch(raw).items()}
+    blocks = {k: torch.from_numpy(v).to(dev)
+              for k, v in batcher.unique_blocks(raw).items()}
+    w_np = np.asarray([1.0, 0.0, 0.7, 2.0], np.float32)
+    w = torch.from_numpy(w_np).to(dev)
+    v = torch.from_numpy(sw.block_weights(A, w_np)
+                         .astype(np.float32)).to(dev)
+    params = M.init_params(cfg, seed=1, device=dev)
+    opt = opt_mod.sgd(1e-2)
+    s_man = coded_train.make_manual_collective_train_step(
+        cfg, opt, alpha_weights=coded_train.alpha_bar_weights(A))
+    s_dd = coded_train.make_train_step(
+        cfg, opt, dedup=True, norm_scale=coded_train.dedup_norm_scale(A))
+    cc_ops.launches = dict.fromkeys(cc_ops.launches, 0)
+    with torch.no_grad():
+        p1, _, m1 = s_man(params, opt.init(params), coded, w)
+        n_launch = cc_ops.launches["coded_combine"]
+        p2, _, m2 = s_dd(params, opt.init(params), blocks, v)
+    if n_launch != n_leaves:
+        raise AssertionError(f"manual step launched coded_combine "
+                             f"{n_launch} times, not {n_leaves}")
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    if abs(l1 - l2) > 1e-5 * abs(l2):
+        raise AssertionError(f"f32 step losses {l1} vs {l2}")
+    for a, b in zip(T.leaves(p1), T.leaves(p2)):
+        if not torch.allclose(a, b, **F32_STEP_TOL):
+            raise AssertionError("f32 step: manual and autograd params "
+                                 f"differ beyond {F32_STEP_TOL}")
+    del p1, p2
+    # the two combined gradients themselves (a parameter difference of
+    # one step is lr * g under float32 cancellation against the params)
+    with torch.no_grad():
+        _, per = coded_train._per_machine_values_and_grads(params, coded,
+                                                           cfg)
+        g_man = coded_train.coded_allreduce(per, w)
+        del per
+        _, g_auto = coded_train.value_and_grad(
+            lambda p: coded_train.coded_loss_fn_dedup(
+                p, blocks, v, cfg, coded_train.dedup_norm_scale(A)),
+            params)
+    gap = max((a - b).abs().max().item()
+              for a, b in zip(T.leaves(g_man), T.leaves(g_auto)))
+    g_max = max(b.abs().max().item() for b in T.leaves(g_auto))
+    _say("f32_step", arch=cfg.name, n_layers=2, loss_manual=l1,
+         loss_autograd=l2, params_tol=F32_STEP_TOL,
+         grad_max_abs_gap=gap, grad_max_abs=g_max,
+         coded_combine_launches=n_launch)
 
 
 def teacher_forced(torch, dev, steps=4):
@@ -251,13 +577,16 @@ def main() -> int:
          allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
+    phases = {}
     t0 = time.perf_counter()
     per = build.build()
-    _say("build", seconds=time.perf_counter() - t0, per_source=per,
+    phases["build"] = time.perf_counter() - t0
+    _say("build", seconds=phases["build"], per_source=per,
          arch="sm_90a", directory=os.path.relpath(build.BUILD_DIR, ROOT))
     for name in build.SOURCES:
         _say("ptxas", name=name,
              report=build.compiler_report(name).splitlines())
+    t0 = time.perf_counter()
 
     import numpy as np
     rng = np.random.default_rng(0)
@@ -278,8 +607,11 @@ def main() -> int:
                            rng.integers(1, 1025, 8).tolist(),
                            "B=8 H=32 KVH=8 S=1024 f32")
     check_beyond_length(torch, dev)
+    rows.update(combine_checks(torch, dev))
+    phases["kernels"] = time.perf_counter() - t0
 
     # ---- the serving path: counts zeroed just before, read just after
+    t0 = time.perf_counter()
     rn_ops.launches = da_ops.launches = 0
     t0 = time.perf_counter()
     out = launch_serve.main(SERVE_ARGS + [
@@ -319,16 +651,35 @@ def main() -> int:
          wall_s=wall, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
     teacher_forced(torch, dev)
+    phases["serve"] = time.perf_counter() - t0
 
+    # ---- the training path: four runs, each zeroed before, read after
+    t0 = time.perf_counter()
+    train_counts = train_runs(torch, dev)
+    phases["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f32_manual_vs_autograd(torch, dev)
+    phases["f32_step"] = time.perf_counter() - t0
+    _say("phases", seconds=phases)
+
+    launches = {name: launches.get(name, 0) + train_counts[name]
+                for name in train_counts}
     kernels = []
     for name, replaces in (
             ("rmsnorm", "src/repro/kernels/rmsnorm/kernel.py:38"),
             ("decode_attention",
-             "src/repro/kernels/decode_attention/kernel.py:72")):
+             "src/repro/kernels/decode_attention/kernel.py:72"),
+            ("coded_combine",
+             "src/repro/kernels/coded_combine/kernel.py:173"),
+            ("quantized_combine",
+             "src/repro/kernels/coded_combine/kernel.py:69"),
+            ("packed_sign_combine",
+             "src/repro/kernels/coded_combine/kernel.py:132")):
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": os.path.relpath(build.SOURCES[name], ROOT),
+            "source": os.path.relpath(build.SOURCES.get(
+                name, build.SOURCES["coded_combine"]), ROOT),
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -1,13 +1,16 @@
 """Host-side gradient-coding machinery (Glasgow & Wootters 2020).
 
-NumPy copies of the ``repro.core`` modules that serving reaches:
+NumPy copies of the ``repro.core`` modules that serving and training
+reach, and the torch gradient codecs:
 
 - graphs:       expander constructions (incl. the exact LPS X^{5,13})
 - assignment:   graph / FRC / uncoded schemes
 - stragglers:   Bernoulli / fixed-count / Markov / adversarial masks
 - decoding:     O(m) optimal graph decoder, pseudoinverse, FRC, fixed
 - batched_decoding: the (trials, m)-at-once alpha* engine (NumPy)
-- step_weights: straggler model factory, w*/alpha, served blocks
+- step_weights: straggler model factory, mask sources, w*/alpha,
+                served blocks, the Monte-Carlo debias scale
+- compress:     none / int8 / sign / sign_packed gradient codecs
 """
 
 from .graphs import (Graph, circulant_graph, complete_graph, cycle_graph,

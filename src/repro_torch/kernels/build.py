@@ -26,6 +26,7 @@ SOURCES = {
     "rmsnorm": _HERE / "rmsnorm" / "csrc" / "rmsnorm.cu",
     "decode_attention": (_HERE / "decode_attention" / "csrc"
                          / "decode_attention.cu"),
+    "coded_combine": _HERE / "coded_combine" / "csrc" / "coded_combine.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

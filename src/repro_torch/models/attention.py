@@ -1,11 +1,20 @@
-"""Cached single-token decode attention with GQA and RoPE, backed by the
-hand-written decode-attention kernel.
+"""Attention with GQA and RoPE: the full-sequence (training) path and
+the cached single-token decode path backed by the hand-written
+decode-attention kernel.
 
-Port of ``repro.models.attention.attention_decode`` / ``init_cache``.
-The reference writes the new K/V through a one-hot blend and returns a
-new cache; this port writes the same values in place and returns the
-cache it was given. The full-sequence training/prefill path waits for
-the training slice.
+Port of ``repro.models.attention``. ``attention_forward`` computes what
+the reference's ``blockwise_attention`` computes for self-attention --
+causal plus an optional sliding window ``k > q - window``
+(``_block_mask``), scores
+and softmax in float32, probabilities cast to the input dtype before
+the value product, float32 accumulation -- as one masked softmax over
+the whole key axis: the reference has no Pallas kernel there, and at
+the training lengths used here the (S x S) scores fit. The reference's
+online softmax over 512-key blocks is the same function up to float32
+rounding.
+
+``attention_decode`` writes the new K/V in place (the reference blends
+a one-hot and returns a new cache) and returns the cache it was given.
 """
 
 from __future__ import annotations
@@ -16,6 +25,8 @@ import torch
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from .layers import _dtype, apply_rope, init_linear, linear
+
+NEG_INF = -1e30
 
 
 def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
@@ -32,6 +43,52 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
         "wo": init_linear(gen, n_heads * head_dim, d_model, dtype=dtype,
                           lead=lead),
     }
+
+
+def _causal_mask(s: int, window: Optional[int], device) -> torch.Tensor:
+    """(S, S) boolean mask: key k <= query q, and k > q - window."""
+    qp = torch.arange(s, device=device)[:, None]
+    kp = torch.arange(s, device=device)[None, :]
+    mask = kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    return mask
+
+
+def causal_attention(q, k, v, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, S, H, Dh); k, v: (B, S, KVH, Dh), H % KVH == 0.
+    Returns (B, S, H, Dh) in q.dtype. Query head h reads KV head
+    h // (H // KVH), the reference's (KVH, G) grouping."""
+    B, S, H, Dh = q.shape
+    G = H // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)                         # B,H,S,Dh
+    kf = k.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    vf = v.repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
+    s = (qf @ kf.transpose(-1, -2)) * Dh ** -0.5               # B,H,S,S
+    s = torch.where(_causal_mask(S, window, q.device), s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = (p.to(q.dtype).float() @ vf.float()) / torch.clamp(l, min=1e-30)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def attention_forward(p, x, *, n_heads: int, n_kv_heads: int,
+                      head_dim: int, rope_theta: float,
+                      window: Optional[int] = None):
+    """Full-sequence causal self-attention (training). x: (B, S, D).
+    The reference's bidirectional and cross-attention variants serve
+    the encoder families, which are not ported."""
+    B, S, _ = x.shape
+    q = linear(p["wq"], x).reshape(B, S, n_heads, head_dim)
+    k = linear(p["wk"], x).reshape(B, S, n_kv_heads, head_dim)
+    v = linear(p["wv"], x).reshape(B, S, n_kv_heads, head_dim)
+    pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    q = apply_rope(q, pos, rope_theta)
+    k = apply_rope(k, pos, rope_theta)
+    out = causal_attention(q, k, v, window=window)
+    return linear(p["wo"], out.reshape(B, S, n_heads * head_dim))
 
 
 def attention_decode(p, x, cache, *, n_heads: int, n_kv_heads: int,

@@ -18,11 +18,12 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from .model import _check_arch
 
 
-def _expected_shapes(cfg: ModelConfig) -> dict:
+def param_shapes(cfg: ModelConfig) -> dict:
     """"/"-joined key path -> shape of the dense reference tree."""
     L, D, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab()
     H, KVH, Dh, F = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
@@ -44,15 +45,6 @@ def _expected_shapes(cfg: ModelConfig) -> dict:
     return shapes
 
 
-def _flatten(tree, prefix="") -> dict:
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}/"))
-        return out
-    return {prefix[:-1]: tree}
-
-
 def read_npz(path: Union[str, os.PathLike]) -> dict:
     """An ``.npz`` of ``repro.checkpoint.save`` -> {key path: array}."""
     path = os.fspath(path)
@@ -69,21 +61,17 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
     _check_arch(cfg)
     device = _device.resolve(device)
     flat = (read_npz(tree) if isinstance(tree, (str, os.PathLike))
-            else _flatten(tree))
-    want = _expected_shapes(cfg)
+            else dict(zip(*T.flatten(tree))))
+    want = param_shapes(cfg)
     if set(flat) != set(want):
         raise ValueError(
             f"parameter keys differ from {cfg.name}'s dense tree: missing "
             f"{sorted(set(want) - set(flat))}, unexpected "
             f"{sorted(set(flat) - set(want))}")
-    out: dict = {}
+    out = {}
     for key, arr in flat.items():
         arr = np.asarray(arr)
         if arr.shape != want[key]:
             raise ValueError(f"{key}: shape {arr.shape}, want {want[key]}")
-        node = out
-        *parents, leaf = key.split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = torch.tensor(arr, device=device)
-    return out
+        out[key] = torch.tensor(arr, device=device)
+    return T.unflatten(out)

@@ -60,6 +60,11 @@ def embed(p, ids):
     return p["table"][ids]
 
 
+def unembed(p, x):
+    """Tied unembedding: logits = x @ table^T, in float32."""
+    return x.float() @ p["table"].float().T
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings (half-split, angles in fp32)
 # ---------------------------------------------------------------------------

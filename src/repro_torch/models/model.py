@@ -1,14 +1,16 @@
-"""The dense decoder-only GQA transformer: parameters, decode cache and
-one decode step.
+"""The dense decoder-only GQA transformer: parameters, the full-sequence
+forward and training loss, the decode cache and one decode step.
 
 Port of the dense branch of ``repro.models.model``: ``init_params``,
-``init_decode_cache``, ``decode_step`` and the LM head. Parameters keep
-the reference's key paths and stacked-layer layout (``blocks/attn/wq/w``
-of shape ``(L, d_in, d_out)``), so a parameter tree crosses between the
-packages through NumPy (``models.convert``). The reference's
-``lax.scan`` over the stacked layers is a Python loop over per-layer
-views. The other families (moe, hybrid, ssm, vlm, audio) and the
-full-sequence ``forward`` / ``train_loss`` wait for later slices.
+``forward_hidden``, ``forward``, ``train_loss``, ``init_decode_cache``,
+``decode_step`` and the LM head. Parameters keep the reference's key
+paths and stacked-layer layout (``blocks/attn/wq/w`` of shape
+``(L, d_in, d_out)``), so a parameter tree crosses between the packages
+through NumPy (``models.convert``). The reference's ``lax.scan`` over
+the stacked layers is a Python loop over per-layer views, and its
+``jax.checkpoint`` rematerialisation is not carried: autograd keeps
+each layer's activations. The other families (moe, hybrid, ssm, vlm,
+audio) wait for later slices.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from . import attention as attn
 from .layers import (_dtype, embed, init_embedding, init_linear, init_mlp,
-                     init_rmsnorm, mlp, rmsnorm)
+                     init_rmsnorm, mlp, rmsnorm, unembed)
 
 SUPPORTED_ARCH_TYPES = ("dense",)
 
@@ -94,6 +96,59 @@ def _unstack(tree, n: int) -> List[dict]:
 
 
 # ---------------------------------------------------------------------------
+# Full-sequence forward and the training loss
+# ---------------------------------------------------------------------------
+
+
+def _attn_block(p, x, cfg: ModelConfig, *, window):
+    x = x + attn.attention_forward(
+        p["attn"], rmsnorm(p["ln_attn"], x, cfg.norm_eps),
+        **_attn_kw(cfg, window))
+    return x + mlp(p["mlp"], rmsnorm(p["ln_mlp"], x, cfg.norm_eps))
+
+
+def forward_hidden(params, tokens, cfg: ModelConfig, *,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """Final-norm hidden states (B, S, D) in ``cfg.dtype``."""
+    _check_arch(cfg)
+    window = window if window is not None else cfg.sliding_window
+    x = embed(params["embed"], tokens).to(_dtype(cfg.dtype))
+    for lp in _unstack(params["blocks"], cfg.n_layers):
+        x = _attn_block(lp, x, cfg, window=window)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def forward(params, tokens, cfg: ModelConfig, *,
+            window: Optional[int] = None) -> torch.Tensor:
+    """tokens: (B, S) int. Returns float32 logits (B, S, V_pad)."""
+    return _lm_head(params, forward_hidden(params, tokens, cfg,
+                                           window=window), cfg)
+
+
+def train_loss(params, batch, cfg: ModelConfig, *,
+               per_example: bool = False) -> torch.Tensor:
+    """Summed next-token cross entropy over the label positions that are
+    >= 0; padded vocab entries are masked to -1e30 before the softmax.
+    Sum (not mean), so per-block losses add like the paper's
+    f = sum_i f_i. ``per_example`` returns per-sequence sums (B,)."""
+    logits = forward(params, batch["tokens"], cfg)
+    labels = batch["labels"].long()
+    vocab = cfg.padded_vocab()
+    if vocab != cfg.vocab_size:
+        vmask = torch.arange(vocab, device=logits.device) < cfg.vocab_size
+        logits = torch.where(vmask, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1,
+                          labels.clamp(min=0)[..., None])[..., 0]
+    ll = picked - lse
+    mask = (labels >= 0).float()
+    loss = -(ll * mask)
+    if per_example:
+        return loss.sum(dim=-1)
+    return loss.sum()
+
+
+# ---------------------------------------------------------------------------
 # Serving: single-token decode with caches
 # ---------------------------------------------------------------------------
 
@@ -130,7 +185,7 @@ def _attn_block_decode(p, x, cache, cfg: ModelConfig, *, window):
 def _lm_head(params, x, cfg: ModelConfig) -> torch.Tensor:
     """float32 logits, as the reference computes them."""
     if cfg.tie_embeddings:
-        return x.float() @ params["embed"]["table"].float().T
+        return unembed(params["embed"], x)
     return x.float() @ params["lm_head"]["w"].float()
 
 

@@ -35,11 +35,18 @@ def test_every_module_imports_without_jax_or_repro():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for sub in ("configs", "core", "kernels", "models", "dist", "serve",
-                "launch"):
+                "launch", "data", "optim", "checkpoint"):
         assert f"repro_torch.{sub}" in res["imported"]
     for mod in ("repro_torch.launch.serve", "repro_torch.models.convert",
                 "repro_torch.kernels.decode_attention.kernel",
-                "repro_torch.kernels.rmsnorm.kernel"):
+                "repro_torch.kernels.rmsnorm.kernel",
+                "repro_torch.launch.train", "repro_torch.data.pipeline",
+                "repro_torch.optim.optimizers",
+                "repro_torch.checkpoint.checkpoint",
+                "repro_torch.core.compress",
+                "repro_torch.kernels.coded_combine.kernel",
+                "repro_torch.kernels.coded_combine.ops",
+                "repro_torch.kernels.coded_combine.ref"):
         assert mod in res["imported"]
     assert res["loaded"] == []
 
@@ -63,14 +70,18 @@ def test_port_layout_mirrors_reference():
     """Each port subpackage has its counterpart in the JAX package, and
     each port module below names a reference module (or is new here)."""
     subs = ("configs", "core", "kernels", "models", "dist", "serve",
-            "launch")
+            "launch", "data", "optim", "checkpoint")
     for sub in subs:
         assert os.path.isdir(os.path.join(SRC, "repro", sub)), sub
         assert os.path.isfile(os.path.join(PORT, sub, "__init__.py")), sub
-    extra = {"models": {"convert"}, "launch": {"step_profile", "timing"}}
-    for sub in ("core", "models", "serve", "dist", "launch"):
+    extra = {"models": {"convert"}, "launch": {"step_profile", "timing"},
+             "kernels": {"build", "_launch"}}
+    for sub in ("core", "models", "serve", "dist", "launch", "data",
+                "optim", "checkpoint", "kernels"):
         port = {m.name for m in pkgutil.iter_modules(
             [os.path.join(PORT, sub)])} - extra.get(sub, set())
-        ref = {os.path.splitext(n)[0] for n in os.listdir(
-            os.path.join(SRC, "repro", sub)) if n.endswith(".py")}
+        ref_dir = os.path.join(SRC, "repro", sub)
+        ref = {os.path.splitext(n)[0] for n in os.listdir(ref_dir)
+               if n.endswith(".py")
+               or os.path.isdir(os.path.join(ref_dir, n))}
         assert port <= ref, (sub, port - ref)

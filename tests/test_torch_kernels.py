@@ -15,6 +15,16 @@ On the card (marker ``cuda``; skipped without one): each CUDA kernel
 against its plain version on the same device tensors, same tolerances.
 The JAX package is imported through a fixture, so the card's tests run
 where JAX is not installed.
+
+The three coded combines (``kernels.coded_combine``) have their own
+ladder, the reference suite's (tests/test_kernels.py:93-275): the plain
+versions against the JAX Pallas kernels in interpret mode within 2e-5
+(float32) / 3e-2 (bfloat16); BITWISE against the float64 NumPy oracles
+on exactness-preserving inputs (integer payloads, power-of-two weights
+and scales, straggler zeros), where every float32 partial sum is exact;
+within 2e-5 of the oracle's scale on general inputs. On the card each
+kernel must equal its plain version bit for bit on any input: both do
+the same rounded multiply and add per row, in row order.
 """
 
 import types
@@ -23,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.coded_combine import ops as cc_ops, ref as cc_r
 from repro_torch.kernels.decode_attention import ops as da_ops, ref as da_r
 from repro_torch.kernels.rmsnorm import ops as rn_ops, ref as rn_r
 
@@ -197,6 +208,201 @@ def test_kernel_forced_on_cpu_tensor_raises(monkeypatch):
     assert (rn_ops.launches, da_ops.launches) == counts
 
 
+# ----------------------------------------------------- coded combines
+
+@pytest.fixture(scope="module")
+def jcc():
+    """The JAX package's coded_combine kernel and ref modules."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.coded_combine import kernel, ref
+    return types.SimpleNamespace(jnp=jnp, k=kernel, r=ref)
+
+
+def _exact_qsw(rng, n, D, payload):
+    """The reference suite's exactness-preserving inputs."""
+    q = rng.integers(-127, 128, size=(n, D)).astype(
+        np.int8 if payload == "int8" else np.float32)
+    s = (2.0 ** rng.integers(-4, 1, size=n)).astype(np.float32)
+    w = (rng.choice([-1.0, 0.0, 1.0], size=n)
+         * 2.0 ** rng.integers(-2, 3, size=n)).astype(np.float32)
+    return q, s, w
+
+
+def _exact_packed(rng, n, D):
+    q = rng.integers(0, 256, size=(n, (D + 7) // 8)).astype(np.uint8)
+    s = (2.0 ** rng.integers(-4, 1, size=n)).astype(np.float32)
+    w = (rng.choice([-1.0, 0.0, 1.0], size=n)
+         * 2.0 ** rng.integers(-2, 3, size=n)).astype(np.float32)
+    return q, s, w
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("n,D", [(8, 1000), (24, 4096), (3, 130),
+                                 (1, 256), (16, 65536)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_coded_combine_plain_matches_jax_kernel(jcc, n, D, dtype):
+    rng = np.random.default_rng(n * 1000 + D)
+    gj, gt = _both(jcc.jnp, rng.normal(size=(n, D)), dtype)
+    w = rng.normal(size=n).astype(np.float32)
+    port = cc_ops.coded_combine(gt, _t(w))
+    assert port.dtype == gt.dtype and port.shape == (D,)
+    want = jcc.k.coded_combine(gj, jcc.jnp.asarray(w), interpret=True)
+    np.testing.assert_allclose(_np(port), _np(want), **_tol(dtype))
+    np.testing.assert_allclose(_np(port), _np(jcc.r.coded_combine(
+        gj, jcc.jnp.asarray(w))), **_tol(dtype))
+
+
+def test_coded_combine_tree_matches_jax(jcc):
+    """Every leaf of a tree reduced over its leading axis, shapes
+    kept (tests/test_kernels.py:380)."""
+    from repro.kernels.coded_combine import ops as jops
+    rng = np.random.default_rng(3)
+    tree = {"a": rng.normal(size=(4, 3, 5)).astype(np.float32),
+            "b": {"c": rng.normal(size=(4, 7)).astype(np.float32)}}
+    w = rng.normal(size=4).astype(np.float32)
+    port = cc_ops.coded_combine_tree(
+        {"a": _t(tree["a"]), "b": {"c": _t(tree["b"]["c"])}}, _t(w))
+    want = jops.coded_combine_tree(
+        {"a": jcc.jnp.asarray(tree["a"]),
+         "b": {"c": jcc.jnp.asarray(tree["b"]["c"])}}, jcc.jnp.asarray(w))
+    assert port["a"].shape == (3, 5) and port["b"]["c"].shape == (7,)
+    np.testing.assert_allclose(_np(port["a"]), _np(want["a"]),
+                               **_tol("float32"))
+    np.testing.assert_allclose(_np(port["b"]["c"]), _np(want["b"]["c"]),
+                               **_tol("float32"))
+
+
+@pytest.mark.parametrize("n,D", [(1, 256), (2, 130), (4, 1000),
+                                 (7, 61), (16, 4096), (3, 129)])
+@pytest.mark.parametrize("payload", ["int8", "float32"])
+def test_quantized_combine_plain_bitwise_to_np_and_jax(jcc, n, D,
+                                                       payload):
+    rng = np.random.default_rng(n * 1000 + D)
+    q, s, w = _exact_qsw(rng, n, D, payload)
+    oracle = cc_r.quantized_combine_np(q, s, w)
+    np.testing.assert_array_equal(
+        oracle, jcc.r.quantized_combine_np(q, s, w))
+    port = cc_ops.quantized_combine(_t(q), _t(s), _t(w))
+    assert port.dtype == torch.float32
+    np.testing.assert_array_equal(port.numpy(), oracle)
+    jnp = jcc.jnp
+    pallas = jcc.k.quantized_combine(jnp.asarray(q), jnp.asarray(s),
+                                     jnp.asarray(w), interpret=True)
+    np.testing.assert_array_equal(port.numpy(), np.asarray(pallas))
+
+
+@pytest.mark.parametrize("n,D", [(2, 73), (5, 700), (6, 69), (16, 4096)])
+def test_quantized_combine_plain_general_inputs_tolerance(jcc, n, D):
+    rng = np.random.default_rng(n * 1000 + D)
+    q = rng.integers(-127, 128, size=(n, D)).astype(np.int8)
+    s = (rng.uniform(0.1, 2.0, size=n)
+         * 10.0 ** rng.integers(-2, 3, size=n)).astype(np.float32)
+    w = rng.normal(size=n).astype(np.float32)
+    ref = np.asarray(cc_r.quantized_combine_np(q, s, w), np.float64)
+    scale = max(1.0, float(np.abs(ref).max()))
+    port = cc_ops.quantized_combine(_t(q), _t(s), _t(w))
+    np.testing.assert_allclose(port.numpy().astype(np.float64) / scale,
+                               ref / scale, atol=2e-5, rtol=0)
+    jnp = jcc.jnp
+    pallas = jcc.k.quantized_combine(jnp.asarray(q), jnp.asarray(s),
+                                     jnp.asarray(w), interpret=True)
+    np.testing.assert_allclose(port.numpy(), np.asarray(pallas),
+                               atol=2e-5 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("n,D", [(1, 256), (2, 130), (4, 1000),
+                                 (7, 61), (16, 4096), (3, 129), (5, 8),
+                                 (3, 1), (2, 7), (2, 9)])
+def test_packed_sign_combine_plain_bitwise_to_np_and_jax(jcc, n, D):
+    """Widths that are and are not multiples of 8: the padding bits of
+    the trailing byte must be dropped, not summed as -1."""
+    rng = np.random.default_rng(n * 1000 + D)
+    q, s, w = _exact_packed(rng, n, D)
+    oracle = cc_r.packed_sign_combine_np(q, s, w, D)
+    np.testing.assert_array_equal(
+        oracle, jcc.r.packed_sign_combine_np(q, s, w, D))
+    port = cc_ops.packed_sign_combine(_t(q), _t(s), _t(w), D)
+    assert port.shape == (D,) and port.dtype == torch.float32
+    np.testing.assert_array_equal(port.numpy(), oracle)
+    jnp = jcc.jnp
+    pallas = jcc.k.packed_sign_combine(jnp.asarray(q), jnp.asarray(s),
+                                       jnp.asarray(w), d=D,
+                                       interpret=True)
+    np.testing.assert_array_equal(port.numpy(), np.asarray(pallas))
+
+
+def test_packed_sign_combine_plain_general_inputs_tolerance(jcc):
+    rng = np.random.default_rng(17)
+    n, D = 6, 700
+    q = rng.integers(0, 256, size=(n, (D + 7) // 8)).astype(np.uint8)
+    s = (rng.uniform(0.1, 2.0, size=n)
+         * 10.0 ** rng.integers(-2, 3, size=n)).astype(np.float32)
+    w = rng.normal(size=n).astype(np.float32)
+    ref = np.asarray(cc_r.packed_sign_combine_np(q, s, w, D), np.float64)
+    scale = max(1.0, float(np.abs(ref).max()))
+    port = cc_ops.packed_sign_combine(_t(q), _t(s), _t(w), D)
+    np.testing.assert_allclose(port.numpy().astype(np.float64) / scale,
+                               ref / scale, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["coded", "quantized", "packed"])
+def test_dead_rows_give_exact_zeros(kind):
+    """w_j == 0: perturbing a straggler row's payload leaves the result
+    bit for bit unchanged, and an all-dead combine is exactly zero."""
+    rng = np.random.default_rng(5)
+    D = 400
+    if kind == "packed":
+        q, s, w = _exact_packed(rng, 5, D)
+    else:
+        q, s, w = _exact_qsw(rng, 5, D, "int8")
+    w[1] = w[3] = 0.0
+    q2 = q.copy()
+    q2[1] = 0xFF if kind == "packed" else 127
+    q2[3] = 0 if kind == "packed" else -127
+
+    def run(qq, ww):
+        if kind == "coded":
+            return cc_ops.coded_combine(_t(qq.astype(np.float32)), _t(ww))
+        if kind == "quantized":
+            return cc_ops.quantized_combine(_t(qq), _t(s), _t(ww))
+        return cc_ops.packed_sign_combine(_t(qq), _t(s), _t(ww), D)
+    assert torch.equal(run(q, w), run(q2, w))
+    zero = run(q, np.zeros_like(w))
+    assert torch.equal(zero, torch.zeros(D, dtype=zero.dtype))
+
+
+def test_packed_sign_combine_rejects_mismatched_width(monkeypatch):
+    """The width check raises before any launch, on either device."""
+    before = dict(cc_ops.launches)
+    with pytest.raises(ValueError, match="width"):
+        cc_ops.packed_sign_combine(torch.zeros(2, 4, dtype=torch.uint8),
+                                   torch.ones(2), torch.ones(2), 64)
+    monkeypatch.setattr(cc_ops, "_FORCE", "kernel")
+    with pytest.raises(ValueError, match="width"):
+        cc_ops.packed_sign_combine(torch.zeros(2, 4, dtype=torch.uint8),
+                                   torch.ones(2), torch.ones(2), 40)
+    assert cc_ops.launches == before
+
+
+def test_combine_kernels_forced_on_cpu_tensor_raise(monkeypatch):
+    """No fallback: the kernels refuse a CPU tensor and count nothing."""
+    monkeypatch.setattr(cc_ops, "_FORCE", "kernel")
+    before = dict(cc_ops.launches)
+    g, w = torch.ones(2, 8), torch.ones(2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cc_ops.coded_combine(g, w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cc_ops.quantized_combine(g.to(torch.int8), w, w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cc_ops.packed_sign_combine(torch.zeros(2, 1, dtype=torch.uint8),
+                                   w, w, 8)
+    assert cc_ops.launches == before
+
+
 # ------------------------------------------------------ on the card
 
 @pytest.mark.cuda
@@ -244,6 +450,60 @@ def test_decode_attention_kernel_matches_plain_on_card(
 @pytest.mark.cuda
 def test_decode_attention_kernel_ignores_values_beyond_length(cuda):
     _beyond_length_case(cuda)
+
+
+def _card_combine_case(cuda, kind, n, D, dtype, exact):
+    rng = np.random.default_rng(n * 7 + D)
+    if kind == "packed":
+        q, s, w = _exact_packed(rng, n, D)
+        if not exact:
+            s = rng.uniform(0.1, 2.0, size=n).astype(np.float32)
+            w = rng.normal(size=n).astype(np.float32)
+    elif exact:
+        q, s, w = _exact_qsw(rng, n, D, "int8" if dtype == "int8"
+                             else "float32")
+    else:
+        q = (rng.integers(-127, 128, size=(n, D)).astype(np.int8)
+             if dtype == "int8"
+             else rng.normal(size=(n, D)).astype(np.float32))
+        s = rng.uniform(0.1, 2.0, size=n).astype(np.float32)
+        w = rng.normal(size=n).astype(np.float32)
+    qt = torch.tensor(q, device=cuda)
+    if kind == "coded":
+        qt = qt.to(getattr(torch, dtype))
+    st, wt = (torch.tensor(a, device=cuda) for a in (s, w))
+    if kind == "coded":
+        return (qt, wt), cc_ops.coded_combine, cc_r.coded_combine
+    if kind == "quantized":
+        return (qt, st, wt), cc_ops.quantized_combine, \
+            cc_r.quantized_combine
+    return (qt, st, wt, D), cc_ops.packed_sign_combine, \
+        cc_r.packed_sign_combine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype", [("coded", "float32"),
+                                        ("coded", "bfloat16"),
+                                        ("quantized", "int8"),
+                                        ("quantized", "float32"),
+                                        ("packed", "uint8")])
+@pytest.mark.parametrize("n,D", [(4, 8192), (4, 1), (4, 7), (3, 9),
+                                 (4, 1_000_003), (16, 4096), (1, 130)])
+@pytest.mark.parametrize("exact", [False, True])
+def test_combine_kernels_equal_plain_on_card(cuda, kind, dtype, n, D,
+                                             exact):
+    args, op, plain = _card_combine_case(cuda, kind, n, D, dtype, exact)
+    before = cc_ops.launches[op.__name__]
+    out = op(*args)
+    torch.cuda.synchronize()
+    assert cc_ops.launches[op.__name__] == before + 1
+    assert torch.equal(out, plain(*args))
+    if exact and kind != "coded":
+        host = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        oracle = (cc_r.quantized_combine_np(*host) if kind == "quantized"
+                  else cc_r.packed_sign_combine_np(*host))
+        np.testing.assert_array_equal(out.cpu().numpy(), oracle)
 
 
 # ------------------------------------------------------------- build

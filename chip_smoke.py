@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU and
-check it: the quickest proof that the port builds, serves and trains on
-the card.
+check it: the quickest proof that the port builds, serves, trains and
+runs the paper's Monte-Carlo and spectral harness on the card.
 
     python3 chip_smoke.py          # from the repository root
 
@@ -9,9 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions, and the float32 matmul setting (TF32 off).
-2. Build: the three CUDA sources under ``src/repro_torch/kernels/*/csrc``
-   (rmsnorm, decode_attention, coded_combine), one nvcc each, started
-   together, for sm_90a into the git-ignored build directory.
+2. Build: the five CUDA sources under ``src/repro_torch/kernels/*/csrc``
+   (rmsnorm, decode_attention, coded_combine, batched_alpha,
+   spectral_matvec), one nvcc each, started together, for sm_90a into
+   the git-ignored build directory.
 3. Kernels: each kernel against its plain PyTorch version on the card,
    in the working dtype, at the serving path's shapes and a few more,
    with the repository's tolerances (bf16 atol = rtol = 3e-2, f32 2e-5);
@@ -25,6 +26,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    at odd widths (D = 1, 7, 9, 1,000,003), and on exact inputs (integer
    payloads, power-of-two weights and scales, a dead row), where the
    comparison is bitwise and also against the float64 NumPy oracles.
+   The harness kernels -- fused_error (K6), gram_matvec with a 1-D v and
+   with 8 right-hand sides (K7a) and gram_matvec_batch (K7b) -- at the
+   harness path's shapes (trials = 30 and 1000 over n = 2184; the
+   regime-2 stack of 12 (2184, 30) slices, and of 12 (2184, 1000)) and
+   odd ones, against their
+   plain torch versions and the float64 NumPy oracles: K6 within
+   rtol = atol = 2e-5, K7 within atol 5e-6 after scaling by max|ref|
+   (the reference suite's tolerances).
 4. The serving path: ``repro_torch.launch.serve.main`` at granite-3-8b's
    full config (40 layers, d_model 4096, GQA 32/8), 16 requests on 8
    slots, coded prefill over the expander, ``--check`` against the
@@ -50,8 +59,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    through autograd, on the same parameters, weights and batch, the
    parameters equal to rtol 2e-4 and atol 2e-5. Each phase's seconds
    are printed.
-6. A ``kernels`` JSON line (K1-K5), then the card line, then the result
-   line.
+6. The harness path (``repro_torch.launch.harness``) on the card at the
+   paper's Section VIII-B scale (m = 6552, d = 6, the LPS X^{5,13}
+   graph, n = 2184): the CLI with ``--full`` (regime 1 and regime 2,
+   the adversarial table at m = 6552, the q = 3 scheme zoo, the
+   convergence grid) with its paper-claim asserts; then the torch label
+   propagator at (1000, 6552) bitwise against the NumPy one, cold and
+   warm; ``monte_carlo_error`` at trials = 1000; the regime-2 campaign
+   (blocked Lanczos, K7b) against per-scheme ``sweep_error`` (lanczos,
+   K7a) and against the same campaign on the CPU (errors within
+   1e-4 |cpu| + 1e-7, covariance norms within 5e-3 |cpu| + 1e-9), one
+   dense SVD, a bitwise repeat and a ``cov_topk=4`` campaign (K7a's
+   block form). Counts are zeroed before and read after each step: one
+   fused_error launch per (scheme, p) row, one gram_matvec_batch launch
+   per lockstep Lanczos iteration, no plain-version run. Then the
+   regime-2 campaign's wall time split into host decode, the K6 stage,
+   and the covariance stage with the device time the profiler saw.
+7. A ``kernels`` JSON line (K1-K7, eight entry points), then the card
+   line, then the result line.
 """
 
 import json
@@ -90,6 +115,24 @@ SERVE_ARGS = ["--arch", "granite-3-8b", "--full-config", "--requests",
               "16", "--slots", "8", "--prompt-len", "128",
               "--prompt-spread", "32", "--max-new-tokens", "32",
               "--max-len", "1024", "--replicas", "8", "--seed", "0"]
+# The harness kernels: the reference suite's tolerances
+# (tests/test_kernels.py:278-358).
+K6_TOL = dict(rtol=2e-5, atol=2e-5)
+K7_SCALED_ATOL = 5e-6          # after dividing by max(1, max|ref|)
+K6_SHAPES = ((30, 2184), (1000, 2184), (1, 1), (7, 130), (33, 384),
+             (1000, 2185))
+K7_SHAPES = ((2184, 30), (2184, 1000), (1, 1), (7, 130), (33, 384),
+             (1000, 2185), (17, 384))
+K7B_SHAPES = ((12, 2184, 30), (12, 2184, 1000), (3, 17, 384),
+              (5, 100, 30))
+# The harness on the card against the CPU: errors within
+# ERR_RTOL |cpu| + ERR_ATOL (float32 reduction, float32 debias scale;
+# the floor covers the exact zeros where alpha = 1), covariance norms
+# within COV_RTOL |cpu| + COV_ATOL (the reference's float32 tolerance,
+# tests/test_campaign.py:40; the floor covers zero covariances).
+ERR_RTOL, ERR_ATOL = 1e-4, 1e-7
+COV_RTOL, COV_ATOL = 5e-3, 1e-9
+HARNESS_P = (0.05, 0.1, 0.15, 0.2, 0.25, 0.3)
 
 
 def _say(tag, **kw):
@@ -545,6 +588,413 @@ def teacher_forced(torch, dev, steps=4):
          .float().mean().item())
 
 
+def _scaled_err(got, want):
+    """max |got - want| / max(1, max |want|), the K7 comparison."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() /
+                 max(1.0, float(np.abs(want).max())))
+
+
+def check_fused_error(torch, dev, T, n, time_it):
+    """K6 against its plain torch version and the float64 oracle."""
+    import numpy as np
+    from repro_torch.kernels.batched_alpha import kernel, ref
+    rng = np.random.default_rng(T * 7 + n)
+    a = rng.normal(1.0, 0.2, size=(T, n))
+    scale = float(rng.uniform(0.5, 1.5))
+    t = torch.tensor(a, dtype=torch.float32, device=dev)
+    out, want = kernel.fused_error(t, scale), ref.fused_error(t, scale)
+    torch.cuda.synchronize()
+    label = f"fused_error trials={T} n={n}"
+    err = _compare(torch, out, want, K6_TOL, label)
+    oracle = ref.fused_error_np(a, scale)
+    if not np.allclose(out.cpu().numpy(), oracle, **K6_TOL):
+        raise AssertionError(f"{label}: kernel disagrees with the float64 "
+                             "oracle")
+    row = dict(kernel="fused_error", shape=label, dtype="float32",
+               max_abs_err=err)
+    if time_it:
+        bound, by = _bound_ms(4 * (T * n + T), 3 * T * n, "float32")
+        row.update(bound_ms=bound, bound_by=by, **_times(
+            torch, lambda: kernel.fused_error(t, scale),
+            lambda: ref.fused_error(t, scale), None))
+    _say("kernel", **row)
+    return row
+
+
+def check_gram_matvec(torch, dev, R, k, bv, time_it):
+    """K7a (bv = 0: a 1-D v) against its plain version and the oracle;
+    no atomics, so two launches must agree bit for bit."""
+    import numpy as np
+    from repro_torch.kernels.spectral_matvec import kernel, ops, ref
+    rng = np.random.default_rng(R + 3 * k + bv)
+    x = rng.normal(size=(R, k))
+    v = rng.normal(size=(bv, k)) if bv else rng.normal(size=k)
+    xs = ops.prepare_operand(x, dev)
+    vt = torch.tensor(v, dtype=torch.float32, device=dev)
+    out, again = kernel.gram_matvec(xs, vt), kernel.gram_matvec(xs, vt)
+    want = ref.gram_matvec(xs, vt)
+    torch.cuda.synchronize()
+    label = f"gram_matvec R={R} k={k} " + (f"bv={bv}" if bv else "1-D v")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: two launches differ")
+    err = _scaled_err(out.cpu(), want.cpu())
+    oracle = (ref.gram_matvec_block_np(x, v.T).T if bv
+              else ref.gram_matvec_np(x, v))
+    err_np = _scaled_err(out.cpu(), oracle)
+    if not max(err, err_np) <= K7_SCALED_ATOL:
+        raise AssertionError(f"{label}: scaled error {err} vs plain, "
+                             f"{err_np} vs the float64 oracle "
+                             f"(> {K7_SCALED_ATOL})")
+    row = dict(kernel="gram_matvec", shape=label, dtype="float32",
+               max_abs_err=err, max_scaled_err_vs_oracle=err_np)
+    if time_it:
+        nrhs = max(bv, 1)
+        bound, by = _bound_ms(4 * (R * k + 2 * nrhs * k), 4 * nrhs * R * k,
+                              "float32")
+        vlib = vt.T if bv else vt
+        row.update(bound_ms=bound, bound_by=by, **_times(
+            torch, lambda: kernel.gram_matvec(xs, vt),
+            lambda: ref.gram_matvec(xs, vt),
+            lambda: xs.T @ (xs @ vlib)))
+    _say("kernel", **row)
+    return row
+
+
+def check_gram_matvec_batch(torch, dev, B, R, k, time_it):
+    """K7b against its plain version and the oracle, bit-reproducible."""
+    import numpy as np
+    from repro_torch.kernels.spectral_matvec import kernel, ops, ref
+    rng = np.random.default_rng(B + R + k)
+    x, v = rng.normal(size=(B, R, k)), rng.normal(size=(B, k))
+    xs = ops.prepare_operand(x, dev)
+    vt = torch.tensor(v, dtype=torch.float32, device=dev)
+    out = kernel.gram_matvec_batch(xs, vt)
+    again = kernel.gram_matvec_batch(xs, vt)
+    want = ref.gram_matvec_batch(xs, vt)
+    torch.cuda.synchronize()
+    label = f"gram_matvec_batch B={B} R={R} k={k}"
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: two launches differ")
+    err = _scaled_err(out.cpu(), want.cpu())
+    err_np = _scaled_err(out.cpu(), ref.gram_matvec_batch_np(x, v))
+    if not max(err, err_np) <= K7_SCALED_ATOL:
+        raise AssertionError(f"{label}: scaled error {err} vs plain, "
+                             f"{err_np} vs the float64 oracle")
+    row = dict(kernel="gram_matvec_batch", shape=label, dtype="float32",
+               max_abs_err=err, max_scaled_err_vs_oracle=err_np)
+    if time_it:
+        bound, by = _bound_ms(4 * (B * R * k + 2 * B * k), 4 * B * R * k,
+                              "float32")
+        row.update(bound_ms=bound, bound_by=by, **_times(
+            torch, lambda: kernel.gram_matvec_batch(xs, vt),
+            lambda: ref.gram_matvec_batch(xs, vt),
+            lambda: xs.transpose(1, 2) @ (xs @ vt[:, :, None])))
+    _say("kernel", **row)
+    return row
+
+
+def harness_kernel_checks(torch, dev):
+    """K6/K7 at the harness path's shapes and odd ones; returns the timed
+    path-shape rows by kernel name (the first shape of each list)."""
+    rows = {}
+    for i, (T, n) in enumerate(K6_SHAPES):
+        r = check_fused_error(torch, dev, T, n, time_it=i < 2)
+        rows.setdefault("fused_error", r)
+    for i, (R, k) in enumerate(K7_SHAPES):
+        r = check_gram_matvec(torch, dev, R, k, 0, time_it=i < 2)
+        rows.setdefault("gram_matvec", r)
+        check_gram_matvec(torch, dev, R, k, 8, time_it=i < 2)
+    for i, (B, R, k) in enumerate(K7B_SHAPES):
+        r = check_gram_matvec_batch(torch, dev, B, R, k, time_it=i < 2)
+        rows.setdefault("gram_matvec_batch", r)
+    return rows
+
+
+HARNESS_KERNELS = ("fused_error", "gram_matvec", "gram_matvec_block",
+                   "gram_matvec_batch")
+
+
+def _harness_zero():
+    from repro_torch.kernels.batched_alpha import ops as ba_ops
+    from repro_torch.kernels.spectral_matvec import ops as sm_ops
+    ba_ops.launches = ba_ops.plain_calls = 0
+    sm_ops.launches = dict.fromkeys(sm_ops.launches, 0)
+    sm_ops.plain_calls = dict.fromkeys(sm_ops.plain_calls, 0)
+
+
+def _harness_read(step):
+    """The harness counts after ``step``; any plain-version run fails."""
+    from repro_torch.kernels.batched_alpha import ops as ba_ops
+    from repro_torch.kernels.spectral_matvec import ops as sm_ops
+    plain = ba_ops.plain_calls + sum(sm_ops.plain_calls.values())
+    if plain:
+        raise AssertionError(f"harness {step}: {plain} plain-version runs "
+                             "on the card")
+    return {"fused_error": ba_ops.launches, **sm_ops.launches}
+
+
+def _within(got, want, rtol, atol):
+    return abs(got - want) <= rtol * abs(want) + atol
+
+
+def _compare_rows(card, cpu, what):
+    """Per (scheme, p): errors within ERR_*, covariance norms (and top-k
+    spectra) within COV_*. Returns, per kind, the largest relative gap
+    where the CPU value is above the absolute floor, and the largest
+    share of the tolerance used anywhere."""
+    gaps = {"err_rel": 0.0, "err_tol_share": 0.0, "cov_rel": 0.0,
+            "cov_tol_share": 0.0}
+
+    def check(kind, got, want, rtol, atol, where):
+        tol = rtol * abs(want) + atol
+        if not abs(got - want) <= tol:
+            raise AssertionError(f"{what} {where}: card {got} vs cpu "
+                                 f"{want} (tolerance {tol})")
+        gaps[f"{kind}_tol_share"] = max(gaps[f"{kind}_tol_share"],
+                                        abs(got - want) / tol)
+        if abs(want) > atol:
+            gaps[f"{kind}_rel"] = max(gaps[f"{kind}_rel"],
+                                      abs(got - want) / abs(want))
+
+    for label in cpu:
+        for rc_, rg in zip(cpu[label], card[label]):
+            where = f"{label} p={rc_['p']}"
+            for key in ("mean_error", "std_error"):
+                check("err", rg[key], rc_[key], ERR_RTOL, ERR_ATOL,
+                      f"{where} {key}")
+            if "cov_norm" in rc_:
+                check("cov", rg["cov_norm"], rc_["cov_norm"], COV_RTOL,
+                      COV_ATOL, f"{where} cov_norm")
+            for a, b in zip(rg.get("cov_topk", ()), rc_.get("cov_topk", ())):
+                check("cov", a, b, COV_RTOL, COV_ATOL, f"{where} cov_topk")
+    return gaps
+
+
+def harness_path(torch, dev):
+    """The harness on the card at paper scale, step by step, each with
+    its counts zeroed before and read after. Returns the summed counts."""
+    import numpy as np
+    import repro_torch.core as tc
+    from repro_torch.core import batched_decoding as bd
+    from repro_torch.core import spectral
+    from repro_torch.launch import harness
+    totals = dict.fromkeys(HARNESS_KERNELS, 0)
+
+    def add(counts):
+        for k_, v_ in counts.items():
+            totals[k_] += v_
+
+    # 1. the CLI, --full: every section with its paper-claim asserts
+    iters = []
+    orig = spectral.lanczos_lambda_max_batch
+
+    def counting(matvec, dim, nbatch, **kw):
+        calls = [0]
+
+        def mv(V, idx):
+            calls[0] += 1
+            return matvec(V, idx)
+        out = orig(mv, dim, nbatch, **kw)
+        iters.append(calls[0])
+        return out
+
+    spectral.lanczos_lambda_max_batch = counting
+    try:
+        _harness_zero()
+        t0 = time.perf_counter()
+        summary = harness.main(["--full"])
+        wall = time.perf_counter() - t0
+        counts = _harness_read("cli")
+    finally:
+        spectral.lanczos_lambda_max_batch = orig
+    secs = summary["sections"]
+    n_rows = (3 * 6 + 2 * 6          # regime 1 and 2: scheme x p rows
+              + 2 * 6                # adversarial: ours and frc
+              + len(secs["zoo"]["rows"]))
+    if counts["fused_error"] != n_rows:
+        raise AssertionError(f"harness cli: {counts['fused_error']} "
+                             f"fused_error launches for {n_rows} rows")
+    if not iters or counts["gram_matvec_batch"] != sum(iters):
+        raise AssertionError(f"harness cli: {counts['gram_matvec_batch']} "
+                             f"gram_matvec_batch launches for lockstep "
+                             f"iterations {iters}")
+    add(counts)
+    _say("harness_cli", device=summary["device"], mode=summary["mode"],
+         seconds={k_: v_["seconds"] for k_, v_ in secs.items()},
+         wall_s=wall, launches=counts, lockstep_iterations=iters,
+         regime2=[{k_: r[k_] for k_ in ("p", "ours_optimal",
+                                        "ours_optimal_cov", "ours_fixed",
+                                        "ours_fixed_cov")}
+                  for r in secs["decoding_error"]["rows"]
+                  if r["regime"] == "m6552_d6_LPS"])
+
+    A = tc.expander_assignment(6552, 6, vertex_transitive=True, seed=0)
+
+    # 2. the torch propagator at the throughput point, bitwise
+    u = tc.bernoulli_uniforms(A.m, 1000, 0)
+    alive = u >= 0.2
+    t0 = time.perf_counter()
+    want = bd._propagate_numpy(A.graph, alive)
+    np_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = bd._propagate_torch(A.graph, alive, None, dev)
+    torch_s = time.perf_counter() - t0
+    warm = bd._propagate_torch(A.graph, alive,
+                               bd._propagate_torch(A.graph, u >= 0.3, None,
+                                                   dev), dev)
+    if not (cold.dtype == want.dtype and np.array_equal(cold, want)
+            and np.array_equal(warm, want)):
+        raise AssertionError("torch propagator labels differ from the "
+                             "NumPy propagator's")
+    _say("harness_propagator", trials=1000, m=A.m, p=0.2,
+         labels_dtype=str(cold.dtype), bitwise_cold=True, bitwise_warm=True,
+         numpy_s=np_s, torch_s=torch_s)
+
+    # 3. monte_carlo_error at trials = 1000, cov off
+    _harness_zero()
+    t0 = time.perf_counter()
+    mc = tc.monte_carlo_error(A, 0.2, trials=1000, cov=False, device=dev)
+    mc_s = time.perf_counter() - t0
+    counts = _harness_read("monte_carlo_error")
+    mc_cpu = tc.monte_carlo_error(A, 0.2, trials=1000, cov=False,
+                                  device="cpu")
+    if counts["fused_error"] != 1 or any(
+            not _within(mc[k_], mc_cpu[k_], ERR_RTOL, ERR_ATOL)
+            for k_ in mc_cpu):
+        raise AssertionError(f"monte_carlo_error: {mc} vs cpu {mc_cpu}, "
+                             f"counts {counts}")
+    add(counts)
+    _say("harness_monte_carlo", trials=1000, p=0.2, card=mc, cpu=mc_cpu,
+         seconds=mc_s, trials_per_s=1000 / mc_s, launches=counts)
+
+    # 4. regime 2: campaign (blocked, K7b) vs per-scheme sweep_error
+    # (lanczos, K7a) vs the campaign on the CPU; a repeat; one dense SVD
+    entries = [(A, "optimal"), (A, "fixed")]
+    _harness_zero()
+    t0 = time.perf_counter()
+    camp = tc.sweep_campaign(entries, HARNESS_P, trials=30, seed=0,
+                             device=dev)
+    camp_s = time.perf_counter() - t0
+    counts = _harness_read("regime-2 campaign")
+    if counts["fused_error"] != 12 or counts["gram_matvec_batch"] < 1:
+        raise AssertionError(f"regime-2 campaign counts {counts}")
+    add(counts)
+    camp_cpu = tc.sweep_campaign(entries, HARNESS_P, trials=30, seed=0,
+                                 device="cpu")
+    gaps = _compare_rows(camp, camp_cpu, "regime-2 campaign")
+    _harness_zero()
+    again = tc.sweep_campaign(entries, HARNESS_P, trials=30, seed=0,
+                              device=dev)
+    add(_harness_read("regime-2 repeat"))
+    if again != camp:
+        raise AssertionError("the regime-2 campaign on the card did not "
+                             "repeat bit for bit")
+    _harness_zero()
+    seq = {f"{A.name}:{m_}": tc.sweep_error(
+        A, HARNESS_P, trials=30, method=m_, seed=0, cov_method="lanczos",
+        device=dev) for _, m_ in entries}
+    counts = _harness_read("per-scheme sweep_error")
+    if counts["fused_error"] != 12 or counts["gram_matvec"] < 1:
+        raise AssertionError(f"sweep_error counts {counts}")
+    add(counts)
+    gaps_seq = _compare_rows(seq, camp_cpu, "per-scheme sweep_error")
+    alphas = tc.batched_alpha(A, u[:30] >= 0.3, method="fixed", p=0.3,
+                              device=dev)
+    scaled = alphas * tc.step_weights.debias_scale(alphas)
+    dense = tc.covariance_spectral_norm(scaled, method="dense", device=dev)
+    blocked = camp[f"{A.name}:fixed"][-1]["cov_norm"]
+    if not _within(blocked, dense, COV_RTOL, COV_ATOL):
+        raise AssertionError(f"blocked cov norm {blocked} vs dense SVD "
+                             f"{dense}")
+    _harness_zero()
+    topk = tc.sweep_campaign(entries, HARNESS_P, trials=30, seed=0,
+                             cov=False, cov_topk=4, device=dev)
+    counts = _harness_read("cov_topk campaign")
+    if counts["gram_matvec_block"] < 1:
+        raise AssertionError(f"cov_topk campaign counts {counts}")
+    add(counts)
+    topk_cpu = tc.sweep_campaign(entries, HARNESS_P, trials=30, seed=0,
+                                 cov=False, cov_topk=4, device="cpu")
+    gaps_topk = _compare_rows(topk, topk_cpu, "cov_topk campaign")
+    _say("harness_regime2", trials=30, campaign_s=camp_s,
+         gaps_vs_cpu=gaps, sweep_error_gaps_vs_cpu=gaps_seq,
+         topk_gaps_vs_cpu=gaps_topk, dense_svd=dense, blocked=blocked,
+         repeat_bitwise=True, tolerances=dict(
+             err=[ERR_RTOL, ERR_ATOL], cov=[COV_RTOL, COV_ATOL]))
+    return totals
+
+
+def harness_breakdown(torch, dev):
+    """The regime-2 campaign's wall time by stage, after a warm-up pass:
+    host decode, the K6 stage (upload, kernel, download), the
+    covariance stage (host Lanczos around the K7b launches); and the
+    device time the profiler records inside the last two."""
+    import numpy as np
+    import repro_torch.core as tc
+    from repro_torch.core import sweep
+    from repro_torch.kernels.batched_alpha import ops as ba_ops
+    A = tc.expander_assignment(6552, 6, vertex_transitive=True, seed=0)
+    u = tc.bernoulli_uniforms(A.m, 30, 0)
+    masks = np.stack([u >= p for p in HARNESS_P])
+    out = {}
+
+    def decode():
+        return [sweep._campaign_alphas(
+            tc.CampaignEntry(A, m_), masks, list(HARNESS_P),
+            backend="auto", warm_start=True, device=dev)
+            for m_ in ("optimal", "fixed")]
+    alphas = decode()                      # warm-up: caches, first calls
+    t0 = time.perf_counter()
+    alphas = decode()
+    out["decode_host_s"] = time.perf_counter() - t0
+
+    def device_stages():
+        slices = []
+        for al in alphas:
+            for a in al:
+                _, scale = ba_ops.fused_error(a, device=dev)
+                slices.append(a * scale)
+        t1 = time.perf_counter()
+        tc.covariance_spectral_norm_batch(np.stack(slices), device=dev)
+        torch.cuda.synchronize()
+        return t1
+
+    device_stages()                        # warm-up: lazy kernel loads
+    t0 = time.perf_counter()
+    t1 = device_stages()
+    out["k6_stage_s"] = t1 - t0
+    out["cov_stage_s"] = time.perf_counter() - t1
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        device_stages()
+        prof_wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.key_averages():
+        # device-side events only (kernels, copies): an operator's row
+        # repeats the time of the kernels it launched
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e6
+    device_s = sum(by_name.values())
+    out.update(profiled_wall_s=prof_wall,
+               device_s=device_s if device_s else "not measured",
+               device_busy_share=(device_s / prof_wall if device_s
+                                  else "not measured"),
+               device_s_by_name=dict(sorted(by_name.items(),
+                                            key=lambda kv: -kv[1])[:8]))
+    _say("harness_breakdown", arch="m6552_d6_LPS trials=30 regime 2",
+         **out)
+
+
 def main() -> int:
     try:
         import torch
@@ -608,6 +1058,7 @@ def main() -> int:
                            "B=8 H=32 KVH=8 S=1024 f32")
     check_beyond_length(torch, dev)
     rows.update(combine_checks(torch, dev))
+    rows.update(harness_kernel_checks(torch, dev))
     phases["kernels"] = time.perf_counter() - t0
 
     # ---- the serving path: counts zeroed just before, read just after
@@ -660,26 +1111,47 @@ def main() -> int:
     t0 = time.perf_counter()
     f32_manual_vs_autograd(torch, dev)
     phases["f32_step"] = time.perf_counter() - t0
+
+    # ---- the harness path: each step zeroed before, read after
+    t0 = time.perf_counter()
+    harness_counts = harness_path(torch, dev)
+    phases["harness"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    harness_breakdown(torch, dev)
+    phases["harness_breakdown"] = time.perf_counter() - t0
     _say("phases", seconds=phases)
 
     launches = {name: launches.get(name, 0) + train_counts[name]
                 for name in train_counts}
+    launches.update(
+        fused_error=harness_counts["fused_error"],
+        gram_matvec=(harness_counts["gram_matvec"]
+                     + harness_counts["gram_matvec_block"]),
+        gram_matvec_batch=harness_counts["gram_matvec_batch"])
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
     kernels = []
-    for name, replaces in (
-            ("rmsnorm", "src/repro/kernels/rmsnorm/kernel.py:38"),
-            ("decode_attention",
-             "src/repro/kernels/decode_attention/kernel.py:72"),
-            ("coded_combine",
-             "src/repro/kernels/coded_combine/kernel.py:173"),
-            ("quantized_combine",
-             "src/repro/kernels/coded_combine/kernel.py:69"),
-            ("packed_sign_combine",
-             "src/repro/kernels/coded_combine/kernel.py:132")):
+    for name, source, replaces in (
+            ("rmsnorm", "rmsnorm", "src/repro/kernels/rmsnorm/kernel.py:54"),
+            ("decode_attention", "decode_attention",
+             "src/repro/kernels/decode_attention/kernel.py:90"),
+            ("coded_combine", "coded_combine",
+             "src/repro/kernels/coded_combine/kernel.py:183"),
+            ("quantized_combine", "coded_combine",
+             "src/repro/kernels/coded_combine/kernel.py:91"),
+            ("packed_sign_combine", "coded_combine",
+             "src/repro/kernels/coded_combine/kernel.py:158"),
+            ("fused_error", "batched_alpha",
+             "src/repro/kernels/batched_alpha/kernel.py:58"),
+            ("gram_matvec", "spectral_matvec",
+             "src/repro/kernels/spectral_matvec/kernel.py:75"),
+            ("gram_matvec_batch", "spectral_matvec",
+             "src/repro/kernels/spectral_matvec/kernel.py:127")):
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": os.path.relpath(build.SOURCES.get(
-                name, build.SOURCES["coded_combine"]), ROOT),
+            "source": os.path.relpath(build.SOURCES[source], ROOT),
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

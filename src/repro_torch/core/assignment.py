@@ -1,25 +1,43 @@
 """Assignment matrices: data blocks -> machines.
 
-Copy of the part of ``repro.core.assignment`` that serving and the
-coded step reach: the paper's graph scheme (Def II.2: blocks =
-vertices, machines = edges), the fractional repetition code of [4]/[10]
-and the uncoded identity. The scheme zoo (cyclic-MDS, BIBD, random
-matchings) waits for the harness slice.
+The paper's scheme (Def II.2) derives A from a graph; we also implement
+every baseline the paper compares against (Table I / Section VIII) plus
+the rival constructions of the related work (the "scheme zoo"):
+
+- ``GraphAssignment``   : blocks = vertices, machines = edges (ours).
+- ``FRCAssignment``     : fractional repetition code of [4]/[10].
+- ``AdjacencyAssignment``: expander code of [6] (A = adjacency matrix,
+  machines = vertices holding their d neighbours' blocks).
+- ``BernoulliAssignment``: rBGC-style random sparse assignment of [8].
+- ``UncodedAssignment`` : identity (ignore-stragglers baseline).
+- ``cyclic_mds_assignment``: the cyclic / shifted construction of
+  Raviv et al. (1707.03858) -- machine j holds the d cyclically
+  consecutive blocks starting at j.
+- ``bibd_assignment``   : balanced-incomplete-block-design codes of
+  Kadhe et al. (1904.13373) for adversarial stragglers -- symmetric
+  designs developed from cyclic difference sets, or the lines of the
+  affine plane AG(2, q).
+- ``random_matching_assignment``: Def II.2 over the random
+  union-of-perfect-matchings d-regular graphs of Charles et al.
+  (1711.06771), vs our deterministic LPS/Cayley expanders.
 
 All assignments are over *blocks* (the N x m point-level matrix is the
 block-level matrix with each row repeated block_size times, which leaves
 every normalized error metric unchanged -- see paper Section II).
+
+Copy of ``repro.core.assignment``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+import itertools
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from .graphs import Graph, make_expander
+from .graphs import Graph, make_expander, random_matching_regular_graph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +137,192 @@ def frc_assignment(m: int, d: int) -> Assignment:
     return Assignment(A=A, name=f"frc(d={d})")
 
 
+def adjacency_assignment(graph: Graph, name: str = "adjacency") -> Assignment:
+    """Expander code of [6]: n blocks = n machines = vertices of G;
+    machine j holds the blocks of its neighbours (A = Adj(G))."""
+    return Assignment(A=graph.adjacency().astype(np.float64), name=name,
+                      graph=graph, machines="vertices")
+
+
+def bernoulli_assignment(n: int, m: int, d: int, seed: int = 0) -> Assignment:
+    """rBGC-flavoured random assignment [8]: each (block, machine) entry
+    is 1 independently with probability d/m, regularized so every block
+    appears at least once."""
+    rng = np.random.default_rng(seed)
+    A = (rng.random((n, m)) < d / m).astype(np.float64)
+    for i in range(n):  # regularization: no empty rows
+        if not A[i].any():
+            A[i, rng.integers(m)] = 1.0
+    return Assignment(A=A, name=f"bernoulli(d={d})")
+
+
 def uncoded_assignment(m: int) -> Assignment:
     """No replication: block i on machine i only (ignore stragglers)."""
     return Assignment(A=np.eye(m, dtype=np.float64), name="uncoded")
+
+
+# ---------------------------------------------------------------------------
+# Scheme zoo: the related-work constructions the paper benchmarks against
+# ---------------------------------------------------------------------------
+
+
+def cyclic_mds_assignment(m: int, d: int) -> Assignment:
+    """Cyclic / shifted construction of Raviv et al. (1707.03858):
+    n = m blocks, machine j holds the d cyclically consecutive blocks
+    {j, j+1, ..., j+d-1 mod m}.
+
+    The assignment matrix is circulant, so the scheme is transitive
+    under the cyclic shift (unbiased under symmetric straggler
+    processes) like the MDS-based cyclic repetition codes that paper
+    analyses. Decoding goes through the least-squares pseudoinverse
+    (Eq. 9) -- there is no graph, and no closed form survives partial
+    window erasures.
+    """
+    if d < 1:
+        raise ValueError(f"cyclic MDS replication must be >= 1, got "
+                         f"d={d}")
+    if d > m:
+        raise ValueError(
+            f"cyclic MDS scheme needs d <= m: machine j holds d "
+            f"consecutive blocks of only m={m} distinct blocks, so "
+            f"d={d} would assign duplicates")
+    A = np.zeros((m, m), dtype=np.float64)
+    for j in range(m):
+        for k in range(d):
+            A[(j + k) % m, j] = 1.0
+    return Assignment(A=A, name=f"cyclic_mds(d={d})")
+
+
+def _quadratic_residue_difference_set(v: int) -> Optional[Tuple[int, ...]]:
+    """The Paley difference set {x^2 mod v} for prime v = 3 mod 4:
+    a (v, (v-1)/2, (v-3)/4) cyclic difference set."""
+    if v < 7 or v % 4 != 3:
+        return None
+    if any(v % f == 0 for f in range(2, int(v ** 0.5) + 1)):
+        return None
+    return tuple(sorted({(x * x) % v for x in range(1, v)}))
+
+
+def _search_difference_set(v: int, k: int,
+                           lam: int) -> Optional[Tuple[int, ...]]:
+    """Smallest-lexicographic (v, k, lam) cyclic difference set by
+    exhaustive search over base blocks containing 0. Bounded: meant
+    for the small-v designs the zoo and the brute-force adversarial
+    oracle use (Fano, biplanes, small projective planes)."""
+    budget = 5_000_000  # ~seconds; v in the tens stays far below it
+    cost_per = k * (k - 1)
+    seen = 0
+    for rest in itertools.combinations(range(1, v), k - 1):
+        seen += cost_per
+        if seen > budget:
+            return None
+        block = (0,) + rest
+        diffs = np.zeros(v, dtype=np.int64)
+        for a, b in itertools.permutations(block, 2):
+            diffs[(a - b) % v] += 1
+        if np.all(diffs[1:] == lam):
+            return block
+    return None
+
+
+def _affine_plane_blocks(q: int) -> Sequence[Sequence[int]]:
+    """The q^2 + q lines of AG(2, q), q prime: point (x, y) has index
+    x*q + y; lines are {y = a x + b} for a, b in F_q plus the q
+    verticals {x = c}."""
+    lines = []
+    for a in range(q):
+        for b in range(q):
+            lines.append([x * q + (a * x + b) % q for x in range(q)])
+    for c in range(q):
+        lines.append([c * q + y for y in range(q)])
+    return lines
+
+
+def bibd_assignment(v: int, k: int, *, design: str = "auto") -> Assignment:
+    """Block-design codes of Kadhe et al. (1904.13373): machines are
+    the blocks of a (v, k, lambda) BIBD over the v data blocks, so
+    every *pair* of data blocks is covered by exactly lambda machines
+    -- the pairwise balance that caps how much damage an adversarial
+    straggler set can concentrate (see tests/test_adversarial_oracle).
+
+    Two constructible families:
+
+    * ``design='symmetric'``: a symmetric (v, k, lambda) design
+      developed cyclically from a difference set (m = v machines,
+      replication r = k, lambda = k(k-1)/(v-1)); served by the Paley
+      quadratic-residue set for prime v = 3 mod 4 with k = (v-1)/2,
+      else by bounded exhaustive search (Fano plane, biplanes, small
+      projective planes).
+    * ``design='affine'``: the q^2 + q lines of the affine plane
+      AG(2, q) with q = k prime (v = k^2 data blocks, m = k^2 + k
+      machines, replication r = k + 1, lambda = 1) -- the resolvable
+      family, whose machine count composes with the d | m schemes in
+      one campaign (symmetric designs never have k | v).
+
+    ``design='auto'`` picks affine when v == k^2, else symmetric.
+    Parameter validation happens here, at construction: the lambda
+    divisibility condition and design existence are checked up front
+    with actionable errors rather than failing downstream.
+    """
+    if design == "auto":
+        design = "affine" if v == k * k else "symmetric"
+    if not 2 <= k < v:
+        raise ValueError(f"BIBD needs 2 <= k < v, got (v={v}, k={k})")
+    if design == "affine":
+        if v != k * k:
+            raise ValueError(
+                f"affine-plane BIBD needs v = k^2 points, got v={v} "
+                f"for k={k} (AG(2, q) has q^2 points on lines of q)")
+        if any(k % f == 0 for f in range(2, k)):
+            raise ValueError(
+                f"affine-plane BIBD needs prime q = k, got k={k} "
+                "(prime-power planes need field arithmetic we don't "
+                "carry)")
+        blocks = _affine_plane_blocks(k)
+        name = f"bibd_affine(q={k})"
+    elif design == "symmetric":
+        if (k * (k - 1)) % (v - 1) != 0:
+            raise ValueError(
+                f"no symmetric (v={v}, k={k}) BIBD: lambda = "
+                f"k(k-1)/(v-1) = {k * (k - 1)}/{v - 1} is not an "
+                "integer (pick v, k with (v-1) | k(k-1), e.g. the "
+                "Fano plane (7, 3) or a quadratic-residue design "
+                "(prime v = 3 mod 4, k = (v-1)/2))")
+        lam = k * (k - 1) // (v - 1)
+        ds = None
+        if k == (v - 1) // 2:
+            ds = _quadratic_residue_difference_set(v)
+        if ds is None:
+            ds = _search_difference_set(v, k, lam)
+        if ds is None:
+            raise ValueError(
+                f"no (v={v}, k={k}, lambda={lam}) cyclic difference "
+                "set found (the design may not exist -- cf. the "
+                "Bruck-Ryser-Chowla condition -- or lies beyond the "
+                "bounded search)")
+        blocks = [[(x + j) % v for x in ds] for j in range(v)]
+        name = f"bibd({v},{k},{lam})"
+    else:
+        raise ValueError(f"unknown BIBD design {design!r} "
+                         "(auto | symmetric | affine)")
+    A = np.zeros((v, len(blocks)), dtype=np.float64)
+    for j, block in enumerate(blocks):
+        A[list(block), j] = 1.0
+    return Assignment(A=A, name=name)
+
+
+def random_matching_assignment(m: int, d: int, seed: int = 0) -> Assignment:
+    """Def II.2 over the random union-of-perfect-matchings d-regular
+    graph of Charles et al. (1711.06771): the sparse random rival of
+    our deterministic LPS / Cayley expanders, decodable by the same
+    O(m) component decoder (machines = edges)."""
+    if d < 1:
+        raise ValueError(f"replication must be >= 1, got d={d}")
+    if d > m:
+        raise ValueError(f"graph schemes need d <= m: d={d} edges per "
+                         f"vertex cannot exceed m={m} machines")
+    if (2 * m) % d != 0:
+        raise ValueError(f"need d | 2m for a d-regular graph with "
+                         f"m edges, got (m={m}, d={d})")
+    g = random_matching_regular_graph(2 * m // d, d, seed=seed)
+    return graph_assignment(g, name=f"random_matching(d={d})")

@@ -33,10 +33,10 @@ index of its component, in O(log n) rounds. Each round is a
 whole-(trials, 2n)-array operation: a gather of neighbour labels
 through a degree-padded dense incidence (cover nodes inherit the vertex
 degrees, so d-regular graphs pad to exactly d slots), a masked
-min-reduce over the degree axis, and take-along-axis jumps. This copy
-of ``repro.core.batched_decoding`` carries the NumPy backend only; the
-reference's jitted propagator and the sweep engine's warm-start labels
-wait for the training and harness slices.
+min-reduce over the degree axis, and take-along-axis jumps. Backends:
+NumPy for small batches, and torch tensor ops on the card for large ones
+(``_propagate_torch``, the counterpart of the reference's jitted JAX
+``lax.while_loop``, which is XLA and not a Pallas kernel).
 
 Equivalence with the BFS decoder: let L[x] be the fixed-point label of
 cover node x and r = min(L[v0], L[v1]) the component root. Then
@@ -51,6 +51,12 @@ on bipartite components (the ``1 - delta`` branch taken by the weakly
 larger side, which also yields the isolated-vertex 0 via s=1/0), and 1
 on non-bipartite components -- so batched and scalar alphas agree
 bit-for-bit, not just to rounding.
+
+Copy of ``repro.core.batched_decoding`` with the JAX backend replaced by
+the torch one: ``backend`` is 'numpy' | 'torch' | 'auto' and ``device``
+says where the torch propagator runs (``None`` means the card). Labels
+are a unique fixed point, so every backend returns the same labels, and
+``_alpha_from_labels`` stays host NumPy as in the reference.
 """
 
 from __future__ import annotations
@@ -58,9 +64,16 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
+from ..device import resolve
 from .assignment import Assignment
 from .graphs import Graph
+
+# Below this many mask entries the upload and per-round launches of the
+# torch path outweigh its device execution; "auto" uses NumPy there (the
+# reference's threshold for its JAX path).
+_TORCH_MIN_WORK = 200_000
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +89,7 @@ def _cover_dense(graph: Graph):
     neighbours {v0}; both inherit vertex u's degree, so the incidence
     packs into dense (2n, deg_max) tables -- gather + min-reduce over
     the last axis then replaces a ragged segment reduction, which is
-    what makes the batched sweep SIMD-friendly. Padding slots point
+    what makes the batched sweep SIMD- and device-friendly. Padding slots point
     at the node itself via the sentinel edge m (always dead).
 
     Returns (pad_nbr, pad_edge), both (2n, deg_max) int32.
@@ -108,13 +121,27 @@ def _cover_dense(graph: Graph):
 
 
 def _label_dtype(n: int):
-    """int16 labels when every node id fits (2n < 32768, the
-    reference's bound, kept so labels match it dtype for dtype); halves
-    the gather traffic of the memory-bound relax step."""
+    """int16 labels when every node id -- and a 2n sentinel -- fits
+    (2n is even, so 2n < 32768 iff 2n <= 32766 fits int16); halves the
+    gather traffic of the memory-bound relax step. The torch backend
+    works in int64 (``torch.gather`` indices) and hands labels back in
+    this dtype, so warm-start labels round-trip losslessly.
+    """
     return np.int16 if 2 * n < 32768 else np.int32
 
 
-def _propagate_numpy(graph: Graph, alive: np.ndarray) -> np.ndarray:
+def _check_labels0(labels0, trials: int, n: int) -> np.ndarray:
+    """Validate warm-start labels (see ``batched_optimal_alpha_graph``:
+    only sound when the masks are supersets of the labels' masks)."""
+    labels0 = np.asarray(labels0)
+    if labels0.shape != (trials, 2 * n):
+        raise ValueError(f"labels0 must be ({trials}, {2 * n}), "
+                         f"got {labels0.shape}")
+    return labels0.astype(_label_dtype(n), copy=False)
+
+
+def _propagate_numpy(graph: Graph, alive: np.ndarray,
+                     labels0: np.ndarray | None = None) -> np.ndarray:
     n = graph.n
     trials = alive.shape[0]
     pad_nbr, pad_edge = _cover_dense(graph)
@@ -126,7 +153,11 @@ def _propagate_numpy(graph: Graph, alive: np.ndarray) -> np.ndarray:
     self_idx = np.arange(2 * n, dtype=np.int32)[:, None]
     nbr_eff = np.where(alive_ext[:, pad_edge], pad_nbr[None],
                        self_idx[None]).reshape(trials, 2 * n * deg_max)
-    labels = np.tile(np.arange(2 * n, dtype=_label_dtype(n)), (trials, 1))
+    ldt = _label_dtype(n)
+    if labels0 is None:
+        labels = np.tile(np.arange(2 * n, dtype=ldt), (trials, 1))
+    else:
+        labels = _check_labels0(labels0, trials, n)
     while True:
         vals = np.take_along_axis(labels, nbr_eff, axis=1)
         new = np.minimum(labels,
@@ -138,6 +169,56 @@ def _propagate_numpy(graph: Graph, alive: np.ndarray) -> np.ndarray:
             new = nxt
         if np.array_equal(new, labels):
             return labels
+        labels = new
+
+
+@functools.lru_cache(maxsize=64)  # bounded: tables are O(n*d) each
+def _torch_tables(graph: Graph, device: torch.device):
+    """The flattened cover incidence on ``device``, int64 for
+    ``torch.gather``: (nbr_flat, edge_flat), each (2n*deg_max,)."""
+    pad_nbr, pad_edge = _cover_dense(graph)
+    return (torch.as_tensor(pad_nbr.ravel().astype(np.int64), device=device),
+            torch.as_tensor(pad_edge.ravel().astype(np.int64),
+                            device=device))
+
+
+def _propagate_torch(graph: Graph, alive: np.ndarray,
+                     labels0: np.ndarray | None,
+                     device: torch.device) -> np.ndarray:
+    """The torch propagator: alive (T, m) -> cover labels (T, 2n) in
+    ``_label_dtype(n)``, computed on ``device``.
+
+    The same min-label relax and pointer jumps as the reference's JAX
+    propagator: a *static* shared gather index (the flattened incidence)
+    plus a precomputed liveness mask; dead slots read the 2n sentinel,
+    neutral under min. Each round relaxes once and jumps three times;
+    the loop ends when a round changes nothing. The fixed point --
+    per-component label minima -- does not depend on the seed, so cold
+    and warm starts agree bit for bit with ``_propagate_numpy``.
+    """
+    n = graph.n
+    trials = alive.shape[0]
+    deg_max = _cover_dense(graph)[0].shape[1]
+    nbr_flat, edge_flat = _torch_tables(graph, device)
+    alive_t = torch.as_tensor(np.ascontiguousarray(alive), device=device)
+    alive_ext = torch.cat(
+        [alive_t, torch.zeros((trials, 1), dtype=torch.bool,
+                              device=device)], dim=1)
+    pad_alive = alive_ext[:, edge_flat]           # (T, 2n*deg)
+    if labels0 is None:
+        labels = torch.arange(2 * n, dtype=torch.int64,
+                              device=device).repeat(trials, 1)
+    else:
+        labels = torch.as_tensor(labels0.astype(np.int64), device=device)
+    big = torch.tensor(2 * n, dtype=torch.int64, device=device)
+    while True:
+        vals = torch.where(pad_alive, labels[:, nbr_flat], big)
+        new = torch.minimum(
+            labels, vals.view(trials, 2 * n, deg_max).amin(dim=2))
+        for _ in range(3):  # pointer jumping (cheap vs the relax)
+            new = torch.gather(new, 1, new)
+        if torch.equal(new, labels):
+            return labels.cpu().numpy().astype(_label_dtype(n))
         labels = new
 
 
@@ -181,6 +262,19 @@ def is_graph_scheme(assignment: Assignment) -> bool:
     return assignment.graph is not None and assignment.machines == "edges"
 
 
+def _resolve_backend(backend: str, work: int, device) -> str:
+    """'numpy' or 'torch' for a batch of ``work`` mask entries."""
+    if backend == "jax":
+        raise ValueError("backend 'jax' is the reference's; the port's "
+                         "device backend is 'torch'")
+    if backend not in ("auto", "numpy", "torch"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "auto":
+        return ("torch" if work >= _TORCH_MIN_WORK and
+                resolve(device).type == "cuda" else "numpy")
+    return backend
+
+
 def _check_masks(alive, m: int) -> np.ndarray:
     alive = np.asarray(alive, dtype=bool)
     if alive.ndim != 2:
@@ -190,21 +284,58 @@ def _check_masks(alive, m: int) -> np.ndarray:
     return alive
 
 
-def batched_optimal_alpha_graph(graph: Graph, alive) -> np.ndarray:
-    """alpha* (trials, n) for a (trials, m) batch of masks over one graph."""
+def batched_optimal_alpha_graph(graph: Graph, alive, *,
+                                backend: str = "auto", labels0=None,
+                                return_labels: bool = False,
+                                device=None):
+    """alpha* (trials, n) for a (trials, m) batch of masks over one graph.
+
+    backend: 'numpy' | 'torch' | 'auto' ('auto' takes the torch
+    propagator on the card for batches of at least ``_TORCH_MIN_WORK``
+    mask entries and NumPy otherwise; 'torch' runs it on ``device``,
+    which may be the CPU). ``device=None`` means the card, and is only
+    resolved when the torch propagator could run.
+
+    ``labels0`` warm-starts the label propagation with the (trials, 2n)
+    cover labels of a *previous* decode whose masks were subsets of
+    ``alive`` (per trial) -- the sweep engine's nested-in-p protocol.
+    Any seed satisfying that containment leaves the fixed point (and
+    hence alpha) bit-identical to a cold start; it only cuts rounds.
+    ``return_labels=True`` additionally returns the fixed-point labels
+    so the caller can seed the next grid point.
+    """
     alive = _check_masks(alive, graph.m)
     trials = alive.shape[0]
     n = graph.n
     if trials == 0:
-        return np.zeros((0, n), dtype=np.float64)
+        out = np.zeros((0, n), dtype=np.float64)
+        if return_labels:
+            return out, np.zeros((0, 2 * n), dtype=_label_dtype(n))
+        return out
+    backend = _resolve_backend(backend, alive.size, device)
+    if labels0 is not None:
+        labels0 = _check_labels0(labels0, trials, n)
     # Chunk the batch so the (T, 2n, deg_max) gather stays in-cache-ish
     # and bounded in memory (~200 MB of int32 per intermediate).
     deg_max = _cover_dense(graph)[0].shape[1]
     chunk = max(1, int(5e7) // max(2 * n * deg_max, 1))
+    ldt = _label_dtype(n)
     out = np.empty((trials, n), dtype=np.float64)
+    out_labels = (np.empty((trials, 2 * n), dtype=ldt)
+                  if return_labels else None)
     for lo in range(0, trials, chunk):
-        labels = _propagate_numpy(graph, alive[lo:lo + chunk])
+        part = alive[lo:lo + chunk]
+        part_l0 = None if labels0 is None else labels0[lo:lo + chunk]
+        if backend == "torch":
+            labels = _propagate_torch(graph, part, part_l0,
+                                      resolve(device))
+        else:
+            labels = _propagate_numpy(graph, part, part_l0)
         out[lo:lo + chunk] = _alpha_from_labels(labels, n)
+        if out_labels is not None:
+            out_labels[lo:lo + chunk] = labels
+    if return_labels:
+        return out, out_labels
     return out
 
 
@@ -254,6 +385,36 @@ def batched_fixed_alpha(assignment: Assignment, alive,
     return (alive.astype(np.float64) @ assignment.A.T) * c
 
 
+def fixed_alpha_grid(assignment: Assignment, masks,
+                     p_grid) -> np.ndarray:
+    """Fixed decoding for a whole (P, trials, m) mask grid in ONE
+    stacked counts matmul: alpha[i] = (masks[i] @ A.T) / (d (1-p_i)).
+
+    Bit-identical to ``batched_fixed_alpha(A, masks[i], p_grid[i])``
+    per point because the counts matmul is exact integer arithmetic
+    (order-independent); the stacked (P*trials, m) GEMM is what makes
+    the campaign's fixed path ~P times cheaper than the per-point loop
+    (one well-blocked BLAS call instead of P skinny ones).
+    """
+    masks = np.asarray(masks, dtype=bool)
+    if masks.ndim != 3 or masks.shape[2] != assignment.m:
+        raise ValueError(f"masks must be (P, trials, {assignment.m}), "
+                         f"got {masks.shape}")
+    P, trials, m = masks.shape
+    if len(p_grid) != P:
+        raise ValueError(f"p_grid has {len(p_grid)} entries for {P} "
+                         "mask batches")
+    if not counts_are_exact(assignment):
+        return np.stack([batched_fixed_alpha(assignment, masks[i],
+                                             float(p_grid[i]))
+                         for i in range(P)])
+    d = assignment.replication_factor
+    scales = np.asarray([fixed_scale(d, float(p)) for p in p_grid])
+    counts = (masks.reshape(P * trials, m).astype(np.float64)
+              @ assignment.A.T).reshape(P, trials, assignment.n)
+    return counts * scales[:, None, None]
+
+
 def batched_frc_alpha(assignment: Assignment, alive) -> np.ndarray:
     """FRC closed-form optimum for a batch: block survives (alpha = 1)
     iff any machine in its group survives."""
@@ -262,26 +423,62 @@ def batched_frc_alpha(assignment: Assignment, alive) -> np.ndarray:
     return (counts > 0).astype(np.float64)
 
 
+def frc_alpha_grid(assignment: Assignment, masks) -> np.ndarray:
+    """FRC closed form for a (P, trials, m) grid in one stacked counts
+    matmul; bit-identical to per-point ``batched_frc_alpha`` (exact
+    integer counts, thresholded)."""
+    masks = np.asarray(masks, dtype=bool)
+    if masks.ndim != 3 or masks.shape[2] != assignment.m:
+        raise ValueError(f"masks must be (P, trials, {assignment.m}), "
+                         f"got {masks.shape}")
+    P, trials, m = masks.shape
+    counts = (masks.reshape(P * trials, m).astype(np.float64)
+              @ (assignment.A > 0).T)
+    return (counts > 0).astype(np.float64).reshape(P, trials,
+                                                   assignment.n)
+
+
 def batched_alpha(assignment: Assignment, alive, *,
-                  method: str = "optimal", p: float = 0.0) -> np.ndarray:
+                  method: str = "optimal", p: float = 0.0,
+                  backend: str = "auto", labels0=None,
+                  return_labels: bool = False,
+                  device=None) -> np.ndarray:
     """Batched mirror of ``decoding.decode`` returning alphas (trials, n).
 
     Dispatch matches the scalar path exactly: Def II.2 graph schemes use
     the batched component decoder, FRCs their closed form, everything
     else falls back to a per-trial pseudoinverse.
+
+    ``labels0`` / ``return_labels`` expose the graph decoder's
+    warm-start label protocol (see ``batched_optimal_alpha_graph``)
+    through the dispatching entry point, so multi-scheme pipelines (the
+    sweep campaign) can chain labels per scheme without special-casing
+    graph schemes at every call site. Non-graph schemes have no label
+    state: ``labels0`` must be None there, and ``return_labels=True``
+    returns ``(alphas, None)``.
     """
     alive = _check_masks(alive, assignment.m)
-    if method == "optimal" and is_graph_scheme(assignment):
-        return batched_optimal_alpha_graph(assignment.graph, alive)
+    graph = method == "optimal" and is_graph_scheme(assignment)
+    if not graph and labels0 is not None:
+        raise ValueError("labels0 is only meaningful for optimal "
+                         "decoding of graph schemes (no label state "
+                         f"for {assignment.name!r}/{method!r})")
+    if graph:
+        return batched_optimal_alpha_graph(
+            assignment.graph, alive, backend=backend, labels0=labels0,
+            return_labels=return_labels, device=device)
     if method == "fixed":
-        return batched_fixed_alpha(assignment, alive, p)
-    if method != "optimal":
+        out = batched_fixed_alpha(assignment, alive, p)
+    elif method != "optimal":
         raise ValueError(f"unknown method {method!r}")
-    if assignment.name.startswith("frc"):
-        return batched_frc_alpha(assignment, alive)
-    from .decoding import optimal_decode_pinv  # lazy: import cycle
+    elif assignment.name.startswith("frc"):
+        out = batched_frc_alpha(assignment, alive)
+    else:
+        from .decoding import optimal_decode_pinv  # lazy: import cycle
 
-    if alive.shape[0] == 0:
-        return np.zeros((0, assignment.n), dtype=np.float64)
-    return np.stack(
-        [optimal_decode_pinv(assignment, a).alpha for a in alive])
+        if alive.shape[0] == 0:
+            out = np.zeros((0, assignment.n), dtype=np.float64)
+        else:
+            out = np.stack(
+                [optimal_decode_pinv(assignment, a).alpha for a in alive])
+    return (out, None) if return_labels else out

@@ -20,8 +20,8 @@ We also implement the general pseudoinverse decoder (Eq. 9) for
 arbitrary assignment matrices, the fixed-coefficient decoder of
 Section VIII, and the FRC closed-form optimal decoder.
 
-Copy of ``repro.core.decoding``; the Monte-Carlo harness
-(``monte_carlo_error``, ``debias_alpha``) waits for the harness slice.
+Copy of ``repro.core.decoding``; ``monte_carlo_error`` takes a
+``device``.
 """
 
 from __future__ import annotations
@@ -31,9 +31,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..kernels.batched_alpha import ops as _ba_ops
 from .assignment import Assignment
-from .batched_decoding import (counts_are_exact, fixed_scale, fixed_w,
-                               is_graph_scheme)
+from .batched_decoding import (batched_alpha, counts_are_exact,
+                               fixed_scale, fixed_w, is_graph_scheme)
 from .graphs import Graph
 
 
@@ -306,3 +307,37 @@ def decode(assignment: Assignment, alive: np.ndarray, *,
 def normalized_error(alpha: np.ndarray) -> float:
     """(1/n) |alpha - 1|_2^2."""
     return float(np.mean((alpha - 1.0) ** 2))
+
+
+def debias_alpha(alphas: np.ndarray) -> np.ndarray:
+    """Normalize a batch of alpha draws by |1|_2 / |E[alpha]|_2
+    (the paper's alpha-bar)."""
+    return alphas * _ba_ops.debias_scale(alphas)
+
+
+def monte_carlo_error(assignment: Assignment, p: float, *, trials: int,
+                      method: str = "optimal", seed: int = 0,
+                      debias: bool = True, backend: str = "auto",
+                      cov: bool = True,
+                      cov_method: str = "dense", device=None) -> dict:
+    """Estimate E[(1/n)|alpha-bar - 1|^2] and |Cov(alpha-bar)|_2 under
+    Bernoulli(p) stragglers (Figure 3 harness).
+
+    A single-point view of the grid engine: delegates to
+    ``sweep.sweep_error`` with a one-element grid, which keeps this
+    bit-identical to the historical per-trial loop (same RNG stream,
+    same batched decode, same fused error kernel) *and* to multi-point
+    sweeps under the shared-uniform protocol. ``cov=False`` skips the
+    covariance/spectral-norm step for throughput benchmarks;
+    ``cov_method`` defaults to the historical dense SVD -- pass
+    'lanczos' (or 'auto') for the matrix-free O(trials * n * iters)
+    path at large n (see ``core.spectral``). ``device=None`` means the
+    card; ``device="cpu"`` is the reference's float64 path, bit for bit.
+    """
+    from .sweep import sweep_error  # local: decoding is imported early
+
+    row = sweep_error(assignment, (p,), trials=trials, method=method,
+                      seed=seed, debias=debias, backend=backend, cov=cov,
+                      cov_method=cov_method, device=device)[0]
+    del row["p"]
+    return row

@@ -8,9 +8,7 @@ bounds (Thm IV.1, Cor V.2) improve with lambda.
 All constructions return a ``Graph`` with an explicit edge list so the
 assignment matrix and the O(m) decoder can index edges consistently.
 
-Copy of ``repro.core.graphs`` (the constructions ``make_expander``
-reaches) with its own ``circulant_spectrum``; the spectral-expansion
-machinery stays with the reference until the harness is ported.
+Copy of ``repro.core.graphs``; the spectra come from ``core.spectral``.
 """
 
 from __future__ import annotations
@@ -31,7 +29,7 @@ class Graph:
 
     ``circulant_offsets`` is derived metadata (the canonical half
     connection set of a circulant/Cayley graph of Z_n) that unlocks the
-    exact FFT eigenvalue path (``circulant_spectrum``); it is excluded from
+    exact FFT eigenvalue path in ``core.spectral``; it is excluded from
     eq/hash so graphs with identical edge lists share cache entries
     regardless of how they were constructed.
     """
@@ -63,6 +61,22 @@ class Graph:
             adj[u, v] += 1.0
             adj[v, u] += 1.0
         return adj
+
+    def spectral_expansion(self, method: str = "auto") -> float:
+        """lambda = d - lambda_2 for a d-regular graph.
+
+        For irregular graphs, returns max-degree minus the second
+        adjacency eigenvalue, which is what the expander mixing lemma
+        uses up to regularity slack.
+
+        ``method`` dispatches the lambda_2 computation ('auto' |
+        'dense' | 'fft' | 'lanczos'): exact FFT for circulant graphs,
+        dense eigvalsh for small n, matrix-free Lanczos for large
+        regular graphs. See ``core.spectral.graph_lambda2``.
+        """
+        from .spectral import spectral_expansion as _spectral_expansion
+
+        return _spectral_expansion(self, method=method)
 
     def is_regular(self) -> bool:
         deg = self.degrees()
@@ -190,6 +204,54 @@ def random_regular_graph(n: int, d: int, seed: int = 0,
                        f"graph on {n} vertices in {max_tries} tries")
 
 
+def random_matching_regular_graph(n: int, d: int, seed: int = 0,
+                                  max_tries: int = 200) -> Graph:
+    """Random d-regular graph as a union of d random perfect matchings.
+
+    The sparse-random-graph construction of Charles et al. (1711.06771):
+    each of the d rounds draws a uniform perfect matching on the n
+    vertices (n even), and the union is d-regular by construction. The
+    matching model is contiguous with the pairing model
+    (``random_regular_graph``) but keeps per-round regularity exact --
+    the generation style of expander-per-round schemes -- and is
+    near-Ramanujan whp like the pairing model. Matchings that collide
+    with an already-placed edge are redrawn so the union stays simple;
+    a final connectivity check rejects the rare disconnected draw.
+    """
+    if n % 2 != 0:
+        raise ValueError(
+            f"random perfect matchings need an even vertex count, got "
+            f"n={n} (a perfect matching pairs all vertices)")
+    if not 1 <= d < n:
+        raise ValueError(f"need 1 <= d < n for a simple d-regular "
+                         f"graph, got d={d}, n={n}")
+    rng = np.random.default_rng(seed)
+    for _ in range(max_tries):
+        seen: set = set()
+        edges: List[Edge] = []
+        ok = True
+        for _round in range(d):
+            for _try in range(max_tries):
+                perm = rng.permutation(n)
+                matching = [(int(min(a, b)), int(max(a, b)))
+                            for a, b in perm.reshape(-1, 2)]
+                if all(e not in seen for e in matching):
+                    seen.update(matching)
+                    edges.extend(matching)
+                    break
+            else:
+                ok = False
+                break
+        if ok:
+            g = Graph(n, tuple(edges))
+            if g.is_connected():
+                assert g.is_regular()
+                return g
+    raise RuntimeError(f"failed to build a connected {d}-regular union "
+                       f"of perfect matchings on {n} vertices in "
+                       f"{max_tries} tries")
+
+
 def circulant_graph(n: int, offsets: Sequence[int]) -> Graph:
     """Cayley graph of Z_n with connection set {±o : o in offsets}.
 
@@ -240,6 +302,28 @@ def _is_prime(x: int) -> bool:
     return True
 
 
+def paley_graph(q: int) -> Graph:
+    """Paley graph on q vertices (q prime, q = 1 mod 4).
+
+    Vertex-transitive Cayley graph with lambda_2 = (sqrt(q)-1)/2, i.e.
+    an excellent explicit expander with d = (q-1)/2. Serves the same
+    role as the paper's LPS Ramanujan graphs: an explicit
+    vertex-transitive expander, but self-contained to construct.
+    """
+    if not _is_prime(q) or q % 4 != 1:
+        raise ValueError("Paley graph needs prime q = 1 mod 4")
+    squares = {(x * x) % q for x in range(1, q)}
+    edges = []
+    for i in range(q):
+        for j in range(i + 1, q):
+            if (j - i) % q in squares:
+                edges.append((i, j))
+    # q = 1 mod 4 makes -1 a square, so the connection set is symmetric
+    # and the Paley graph is the circulant with the square offsets.
+    return Graph(q, tuple(edges),
+                 circulant_offsets=_canonical_offsets(q, sorted(squares)))
+
+
 def lps_like_cayley_expander(n: int, d: int, seed: int = 0) -> Graph:
     """Vertex-transitive d-regular expander: random circulant of Z_n.
 
@@ -253,6 +337,8 @@ def lps_like_cayley_expander(n: int, d: int, seed: int = 0) -> Graph:
     """
     if d % 2 != 0 and n % 2 != 0:
         raise ValueError("circulant d-regular needs even d or even n")
+    from .spectral import circulant_spectrum
+
     rng = np.random.default_rng(seed)
     k = d // 2
     best_offs: Optional[List[int]] = None
@@ -273,21 +359,6 @@ def lps_like_cayley_expander(n: int, d: int, seed: int = 0) -> Graph:
     if best_offs is None:
         raise RuntimeError("no valid circulant found")
     return circulant_graph(n, best_offs)
-
-
-def circulant_spectrum(n: int, offsets: Sequence[int]) -> np.ndarray:
-    """Exact adjacency spectrum of the circulant graph of Z_n with
-    connection set {+-o : o in offsets} \\ {0} (deduplicated like
-    ``circulant_graph``): lambda_k = sum_{s in S} e^{2 pi i ks/n} --
-    one FFT of the connection-set indicator. Returns the n eigenvalues
-    in frequency order (index 0 is the degree)."""
-    ind = np.zeros(n, dtype=np.float64)
-    for o in _canonical_offsets(n, offsets):
-        ind[o] = 1.0
-        ind[n - o] = 1.0  # same slot when o = n/2: counted once
-    # The connection set is symmetric, so the transform is real up to
-    # rounding.
-    return np.fft.fft(ind).real
 
 
 def _sqrt_mod(a: int, q: int) -> Optional[int]:

@@ -6,8 +6,8 @@ protocol (``sample_mask_stream``), per-mask machine weights w* and alpha
 (``step_weights``), the per-block combine weights v = A @ w
 (``block_weights``), the serving support predicate (``served_blocks``),
 the batched form (``batched_step_weights``) and the Monte-Carlo debias
-scale (``debias_scale_mc``, with ``debias_scale`` from
-``repro.kernels.batched_alpha.ops``). All of it is NumPy, so seeded
+scale (``debias_scale_mc``, with ``debias_scale`` from its single
+source, ``kernels.batched_alpha.ops``). All of it is NumPy, so seeded
 streams are bit-identical to the reference.
 """
 
@@ -18,12 +18,14 @@ from typing import Tuple
 
 import numpy as np
 
+from ..kernels.batched_alpha.ops import debias_scale
 from .assignment import Assignment
 from .batched_decoding import batched_alpha, batched_fixed_alpha, fixed_w
 from .decoding import decode
 from .stragglers import (AdversarialStragglers, BernoulliStragglers,
                          FixedCountStragglers, MarkovStragglers,
                          StragglerModel)
+from .sweep import bernoulli_uniforms
 
 STRAGGLER_MODELS = ("bernoulli", "markov", "adversarial", "fixed_count")
 
@@ -43,12 +45,6 @@ def make_straggler_model(assignment: Assignment, name: str, p: float, *,
         return FixedCountStragglers(m=m, p=p)
     raise ValueError(f"unknown straggler model {name!r}; "
                      f"known: {STRAGGLER_MODELS}")
-
-
-def bernoulli_uniforms(m: int, trials: int, seed: int = 0) -> np.ndarray:
-    """The sweep protocol's shared-uniform draw (``repro.core.sweep``):
-    the (trials, m) batch thresholded against p."""
-    return np.random.default_rng(seed).random((trials, m))
 
 
 class MaskSource:
@@ -233,14 +229,6 @@ def batched_step_weights(assignment: Assignment, masks, *,
         alphas = np.stack([r.alpha for r in results]) if results else \
             np.zeros((0, assignment.n))
     return W * scale, alphas * scale
-
-
-def debias_scale(alphas: np.ndarray) -> float:
-    """The paper's alpha-bar normalisation |1|_2 / |E[alpha]|_2 =
-    sqrt(n) / max(|mean|_2, tiny) over a (trials, n) alpha batch."""
-    mean = alphas.mean(axis=0)
-    return float(np.sqrt(alphas.shape[1]) /
-                 max(np.linalg.norm(mean), 1e-30))
 
 
 def debias_scale_mc(assignment: Assignment, *, p: float,

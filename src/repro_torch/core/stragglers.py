@@ -14,10 +14,9 @@ stagnant throughout a run"):
 All models emit an ``alive`` boolean mask of shape (m,): True = machine
 responded in time.
 
-Copy of ``repro.core.stragglers`` without the scheme-aware attacks on
-cyclic and block-design schemes, whose assignments the port does not
-carry yet. Masks come from the same ``np.random.Generator`` calls, so a
-seeded stream is bit-identical to the reference's.
+Copy of ``repro.core.stragglers``: masks come from the same
+``np.random.Generator`` calls, so a seeded stream is bit-identical to the
+reference's.
 """
 
 from __future__ import annotations
@@ -158,11 +157,77 @@ def adversarial_mask_frc(assignment: Assignment, p: float) -> np.ndarray:
     return alive
 
 
+def _mask_error(assignment: Assignment, alive: np.ndarray) -> float:
+    """Normalized optimal-decoding error of one mask -- the objective
+    the search attacks below maximise. Local import: ``decoding``
+    imports this module's consumers."""
+    from .decoding import decode, normalized_error
+
+    return normalized_error(
+        decode(assignment, alive, method="optimal").alpha)
+
+
+def adversarial_mask_cyclic(assignment: Assignment, p: float) -> np.ndarray:
+    """Attack portfolio for cyclic/shifted schemes (Raviv et al.):
+    the worst straggler set is either a *consecutive window* (which
+    fully erases window-minus-d+1 blocks once the budget exceeds the
+    shift width -- the attack that breaks MDS-style cyclic codes) or
+    an *arithmetic progression* (spread kills maximise per-block
+    damage at small budgets). Both families are enumerated -- O(m)
+    candidate masks, one decode each -- and the worst is returned;
+    exact against the C(m, pm) brute-force oracle on every small-m
+    case pinned in tests/test_adversarial_oracle.py."""
+    m = assignment.m
+    budget = int(np.floor(p * m))
+    if budget == 0:
+        return np.ones(m, dtype=bool)
+    candidates = [[j % m for j in range(budget)]]  # consecutive window
+    for stride in range(2, m // budget + 1):
+        dead = [(j * stride) % m for j in range(budget)]
+        if len(set(dead)) == budget:
+            candidates.append(dead)
+    best_mask, best_err = None, -1.0
+    for dead in candidates:
+        alive = np.ones(m, dtype=bool)
+        alive[dead] = False
+        e = _mask_error(assignment, alive)
+        if e > best_err:
+            best_mask, best_err = alive, e
+    return best_mask
+
+
+def adversarial_mask_bibd(assignment: Assignment, p: float) -> np.ndarray:
+    """Marginal-error greedy attack for block-design schemes (Kadhe et
+    al.): grow the straggler set one machine at a time, each round
+    killing the machine whose removal maximises the realized decoding
+    error. O(budget * m) decodes; exact against the brute-force
+    oracle on every small design pinned in
+    tests/test_adversarial_oracle.py (the pairwise balance that makes
+    BIBDs adversarially strong also flattens the search landscape)."""
+    m = assignment.m
+    budget = int(np.floor(p * m))
+    alive = np.ones(m, dtype=bool)
+    for _ in range(budget):
+        best_j, best_err = None, -1.0
+        for j in np.nonzero(alive)[0]:
+            alive[j] = False
+            e = _mask_error(assignment, alive)
+            alive[j] = True
+            if e > best_err:
+                best_j, best_err = j, e
+        alive[best_j] = False
+    return alive
+
+
 def adversarial_mask(assignment: Assignment, p: float) -> np.ndarray:
     if assignment.graph is not None:
         return adversarial_mask_graph(assignment, p)
     if assignment.name.startswith("frc"):
         return adversarial_mask_frc(assignment, p)
+    if assignment.name.startswith("cyclic_mds"):
+        return adversarial_mask_cyclic(assignment, p)
+    if assignment.name.startswith("bibd"):
+        return adversarial_mask_bibd(assignment, p)
     # Generic greedy: kill machines covering the rarest blocks first.
     A = assignment.A
     m = A.shape[1]

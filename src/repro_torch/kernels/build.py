@@ -27,6 +27,9 @@ SOURCES = {
     "decode_attention": (_HERE / "decode_attention" / "csrc"
                          / "decode_attention.cu"),
     "coded_combine": _HERE / "coded_combine" / "csrc" / "coded_combine.cu",
+    "batched_alpha": _HERE / "batched_alpha" / "csrc" / "batched_alpha.cu",
+    "spectral_matvec": (_HERE / "spectral_matvec" / "csrc"
+                        / "spectral_matvec.cu"),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

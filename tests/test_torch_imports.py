@@ -46,7 +46,15 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.core.compress",
                 "repro_torch.kernels.coded_combine.kernel",
                 "repro_torch.kernels.coded_combine.ops",
-                "repro_torch.kernels.coded_combine.ref"):
+                "repro_torch.kernels.coded_combine.ref",
+                "repro_torch.core.sweep", "repro_torch.core.spectral",
+                "repro_torch.core.adaptive", "repro_torch.core.coded_gd",
+                "repro_torch.core.theory", "repro_torch.core.debias",
+                "repro_torch.kernels.batched_alpha.kernel",
+                "repro_torch.kernels.batched_alpha.ops",
+                "repro_torch.kernels.spectral_matvec.kernel",
+                "repro_torch.kernels.spectral_matvec.ops",
+                "repro_torch.launch.harness"):
         assert mod in res["imported"]
     assert res["loaded"] == []
 
@@ -74,7 +82,8 @@ def test_port_layout_mirrors_reference():
     for sub in subs:
         assert os.path.isdir(os.path.join(SRC, "repro", sub)), sub
         assert os.path.isfile(os.path.join(PORT, sub, "__init__.py")), sub
-    extra = {"models": {"convert"}, "launch": {"step_profile", "timing"},
+    extra = {"models": {"convert"},
+             "launch": {"step_profile", "timing", "harness"},
              "kernels": {"build", "_launch"}}
     for sub in ("core", "models", "serve", "dist", "launch", "data",
                 "optim", "checkpoint", "kernels"):

@@ -540,3 +540,277 @@ def test_build_compiles_missing_sources_once(tmp_path, monkeypatch):
     assert "32 registers" in build.compiler_report("rmsnorm")
     for name in build.SOURCES:
         assert build.library_path(name).parent == tmp_path / "_build"
+
+
+# ------------------------------- harness kernels: fused_error, gram_matvec
+#
+# The reference suite's grids and tolerances (tests/test_kernels.py:
+# 278-358): fused_error rtol = atol = 2e-5 against the float64 oracle;
+# the Gram matvecs atol 5e-6 after scaling by max(1, max|ref|) -- float32
+# accumulation over R rows of products. On the CPU the ops are the
+# float64 oracles themselves, equal to the reference's bit for bit.
+
+from repro_torch.kernels.batched_alpha import ops as ba_ops, ref as ba_r
+from repro_torch.kernels.spectral_matvec import kernel as sm_k, \
+    ops as sm_ops, ref as sm_r
+
+BA_GRID = [(4, 128, None), (10, 130, 8), (64, 1000, 16), (1, 256, None),
+           (33, 384, 8)]
+SM_GRID = [(64, 16, None), (100, 1, 16), (256, 130, 32), (33, 64, None),
+           (17, 384, 8), (2184, 30, None)]
+SM_BLOCK_GRID = [(64, 16, 1), (100, 30, 4), (33, 130, 7), (2184, 30, 3)]
+SM_BATCH_GRID = [(1, 64, 16, None), (5, 100, 30, 16), (3, 33, 130, 8),
+                 (12, 2184, 30, None)]
+
+
+def _scaled_close(got, want):
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(np.asarray(got, np.float64) / scale,
+                               want / scale, atol=5e-6, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def jha():
+    """The JAX package's batched_alpha / spectral_matvec modules."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.batched_alpha import kernel as ba_k, ops as ba_o
+    from repro.kernels.spectral_matvec import kernel as sm_jk, ops as sm_o
+    return types.SimpleNamespace(jnp=jnp, ba_k=ba_k, ba_o=ba_o,
+                                 sm_k=sm_jk, sm_o=sm_o)
+
+
+@pytest.mark.parametrize("T,n,bt", BA_GRID)
+def test_fused_error_plain_matches_jax_kernel(jha, T, n, bt):
+    rng = np.random.default_rng(T * 1000 + n)
+    a = rng.normal(loc=1.0, scale=0.2, size=(T, n))
+    scale = float(rng.uniform(0.5, 1.5))
+    want = np.asarray(jha.ba_k.fused_error(
+        jha.jnp.asarray(a, jha.jnp.float32), jha.jnp.float32(scale),
+        block_t=bt, interpret=True), np.float64)
+    got = ba_r.fused_error(_t(a.astype(np.float32)), scale)
+    assert got.dtype == torch.float32 and got.shape == (T,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), ba_r.fused_error_np(a, scale),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("debias", [True, False])
+def test_fused_error_ops_on_cpu_is_the_reference_oracle(jha, debias):
+    a = np.random.default_rng(3).normal(1.0, 0.1, size=(32, 24))
+    errs, scale = ba_ops.fused_error(a, debias=debias, device="cpu")
+    r_errs, r_scale = jha.ba_o.fused_error(a, debias=debias)
+    assert scale == r_scale and errs.dtype == np.float64
+    np.testing.assert_array_equal(errs, r_errs)
+    assert ba_ops.debias_scale(a) == jha.ba_o.debias_scale(a)
+    e0, s0 = ba_ops.fused_error(np.zeros((0, 5)), device="cpu")
+    assert e0.shape == (0,) and s0 == 1.0
+    with pytest.raises(ValueError, match="trials, n"):
+        ba_ops.fused_error(np.ones(4), device="cpu")
+
+
+@pytest.mark.parametrize("R,k,br", SM_GRID)
+def test_gram_matvec_plain_matches_jax_kernel(jha, R, k, br):
+    rng = np.random.default_rng(R * 7 + k)
+    x, v = rng.normal(size=(R, k)), rng.normal(size=k)
+    want = np.asarray(jha.sm_k.gram_matvec(
+        jha.jnp.asarray(x, jha.jnp.float32),
+        jha.jnp.asarray(v, jha.jnp.float32), block_r=br, interpret=True),
+        np.float64)
+    got = sm_r.gram_matvec(_t(x.astype(np.float32)),
+                           _t(v.astype(np.float32)))
+    assert got.dtype == torch.float32 and got.shape == (k,)
+    oracle = sm_r.gram_matvec_np(x, v)
+    _scaled_close(want, oracle)
+    _scaled_close(got.numpy(), oracle)
+
+
+@pytest.mark.parametrize("R,k,bv", SM_BLOCK_GRID)
+def test_gram_matvec_block_plain_matches_jax_kernel(jha, R, k, bv):
+    rng = np.random.default_rng(R * 11 + bv)
+    x, V = rng.normal(size=(R, k)), rng.normal(size=(k, bv))
+    want = np.asarray(jha.sm_k.gram_matvec(
+        jha.jnp.asarray(x, jha.jnp.float32),
+        jha.jnp.asarray(V.T, jha.jnp.float32), interpret=True), np.float64)
+    got = sm_r.gram_matvec(_t(x.astype(np.float32)),
+                           _t(np.ascontiguousarray(V.T, np.float32)))
+    assert got.shape == (bv, k)
+    oracle = sm_r.gram_matvec_block_np(x, V)
+    _scaled_close(want.T, oracle)
+    _scaled_close(got.numpy().T, oracle)
+
+
+@pytest.mark.parametrize("B,R,k,br", SM_BATCH_GRID)
+def test_gram_matvec_batch_plain_matches_jax_kernel(jha, B, R, k, br):
+    rng = np.random.default_rng(B * 13 + R)
+    x, v = rng.normal(size=(B, R, k)), rng.normal(size=(B, k))
+    want = np.asarray(jha.sm_k.gram_matvec_batch(
+        jha.jnp.asarray(x, jha.jnp.float32),
+        jha.jnp.asarray(v, jha.jnp.float32), block_r=br, interpret=True),
+        np.float64)
+    got = sm_r.gram_matvec_batch(_t(x.astype(np.float32)),
+                                 _t(v.astype(np.float32)))
+    assert got.shape == (B, k)
+    oracle = sm_r.gram_matvec_batch_np(x, v)
+    _scaled_close(want, oracle)
+    _scaled_close(got.numpy(), oracle)
+
+
+def test_gram_matvec_ops_on_cpu_are_the_reference_oracles(jha):
+    rng = np.random.default_rng(4)
+    x, v, V = rng.normal(size=(50, 7)), rng.normal(size=7), \
+        rng.normal(size=(7, 3))
+    xb, vb = rng.normal(size=(4, 40, 9)), rng.normal(size=(4, 9))
+    staged = sm_ops.prepare_operand(x, "cpu")
+    assert isinstance(staged, np.ndarray) and staged.dtype == np.float64
+    assert not sm_ops.uses_kernel("cpu")
+    np.testing.assert_array_equal(sm_ops.gram_matvec(staged, v),
+                                  jha.sm_o.gram_matvec(x, v))
+    np.testing.assert_array_equal(sm_ops.gram_matvec_block(staged, V),
+                                  jha.sm_o.gram_matvec_block(x, V))
+    np.testing.assert_array_equal(sm_ops.gram_matvec_batch(xb, vb),
+                                  jha.sm_o.gram_matvec_batch(xb, vb))
+    for i in range(4):
+        np.testing.assert_array_equal(sm_r.gram_matvec_batch_np(xb, vb)[i],
+                                      sm_r.gram_matvec_np(xb[i], vb[i]))
+    with pytest.raises(ValueError, match="R, k"):
+        sm_ops.gram_matvec(x, np.ones(3))
+    with pytest.raises(ValueError, match="k, b"):
+        sm_ops.gram_matvec_block(x, np.ones((3, 2)))
+    with pytest.raises(ValueError, match="B, R, k"):
+        sm_ops.gram_matvec_batch(xb, np.ones((4, 3)))
+
+
+def test_harness_plain_versions_on_cpu_tensors(monkeypatch):
+    """A CPU tensor (or ``_FORCE = "ref"``) takes the plain float32 torch
+    version and counts it as such; no kernel launch is counted."""
+    rng = np.random.default_rng(6)
+    x, v = rng.normal(size=(40, 9)), rng.normal(size=9)
+    before, plain = dict(sm_ops.launches), dict(sm_ops.plain_calls)
+    got = sm_ops.gram_matvec(torch.from_numpy(x).float(), v)
+    _scaled_close(got, sm_r.gram_matvec_np(x, v))
+    assert sm_ops.plain_calls["gram_matvec"] == plain["gram_matvec"] + 1
+    monkeypatch.setattr(sm_ops, "_FORCE", "ref")
+    got = sm_ops.gram_matvec_block(x, np.stack([v, -v], axis=1))
+    _scaled_close(got, sm_r.gram_matvec_block_np(x, np.stack([v, -v], 1)))
+    assert sm_ops.launches == before
+    monkeypatch.setattr(ba_ops, "_FORCE", "ref")
+    n_plain, n_launch = ba_ops.plain_calls, ba_ops.launches
+    a = rng.normal(1.0, 0.1, size=(8, 33))
+    errs, scale = ba_ops.fused_error(a, device="cpu")
+    np.testing.assert_allclose(errs, ba_r.fused_error_np(a, scale),
+                               rtol=2e-5, atol=2e-5)
+    assert (ba_ops.plain_calls, ba_ops.launches) == (n_plain + 1, n_launch)
+
+
+def test_harness_kernels_forced_on_cpu_raise(monkeypatch):
+    """No fallback: asked for the kernels, the CPU raises and counts
+    nothing."""
+    monkeypatch.setattr(ba_ops, "_FORCE", "kernel")
+    monkeypatch.setattr(sm_ops, "_FORCE", "kernel")
+    before = (ba_ops.launches, dict(sm_ops.launches))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ba_ops.fused_error(np.ones((3, 4)), device="cpu")
+    x = np.ones((6, 4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sm_ops.gram_matvec(x, np.ones(4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sm_ops.gram_matvec_block(x, np.ones((4, 2)))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sm_ops.gram_matvec_batch(np.ones((2, 6, 4)), np.ones((2, 4)))
+    assert (ba_ops.launches, sm_ops.launches) == before
+
+
+@pytest.mark.parametrize("R,B,bv", [(2184, 12, 1), (2184, 1, 1),
+                                    (2184, 1, 8), (1000, 1, 8), (1, 1, 1),
+                                    (7, 1, 1), (17, 3, 1), (5, 1, 4096),
+                                    (100_000, 1, 1)])
+def test_gram_matvec_strip_sizing(R, B, bv):
+    """The CUDA wrapper's strips cover every row, fit the (rows, bv)
+    projection tile in 48 KB of shared memory, and keep the partials
+    within an eighth of X where X has rows to spare."""
+    rows = sm_k.rows_per_strip(R, B, bv)
+    strips = -(-R // rows)
+    assert 1 <= rows <= R and rows * bv <= sm_k._MAX_SMEM_FLOATS
+    assert (strips - 1) * rows < R <= strips * rows
+    if R >= 8 * bv:
+        assert strips * bv <= max(1, R // 8) + bv
+
+
+# ------------------------------------------ harness kernels on the card
+
+CARD_BA_SHAPES = [(30, 2184), (1000, 2184), (1, 1), (7, 130), (33, 384),
+                  (1000, 2185), (5, 3)]
+CARD_SM_SHAPES = [(2184, 30), (2184, 1000), (1, 1), (7, 130), (33, 384),
+                  (1000, 2185), (17, 384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,n", CARD_BA_SHAPES)
+def test_fused_error_kernel_matches_plain_on_card(cuda, T, n):
+    rng = np.random.default_rng(T + n)
+    a = rng.normal(1.0, 0.2, size=(T, n))
+    scale = float(rng.uniform(0.5, 1.5))
+    t = torch.tensor(a, dtype=torch.float32, device=cuda)
+    before = ba_ops.launches
+    errs, s = ba_ops.fused_error(a, debias=False, device=cuda)
+    assert ba_ops.launches == before + 1 and s == 1.0
+    np.testing.assert_allclose(errs, ba_r.fused_error_np(a, 1.0),
+                               rtol=2e-5, atol=2e-5)
+    from repro_torch.kernels.batched_alpha import kernel as ba_k
+    got = ba_k.fused_error(t, scale)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(got), _np(ba_r.fused_error(t, scale)),
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(_np(got), ba_r.fused_error_np(a, scale),
+                               rtol=2e-5, atol=2e-5)
+    # an unaligned row start: the kernel reads the head as scalars
+    if n > 1:
+        u = t[:, 1:]
+        np.testing.assert_allclose(
+            _np(ba_k.fused_error(u.contiguous(), scale)),
+            ba_r.fused_error_np(a[:, 1:], scale), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,k", CARD_SM_SHAPES)
+@pytest.mark.parametrize("bv", [0, 8])
+def test_gram_matvec_kernel_matches_plain_on_card(cuda, R, k, bv):
+    rng = np.random.default_rng(R + k + bv)
+    x = rng.normal(size=(R, k))
+    V = rng.normal(size=(k, bv)) if bv else rng.normal(size=k)
+    xs = sm_ops.prepare_operand(x, cuda)
+    assert sm_ops.uses_kernel(cuda) and xs.dtype == torch.float32
+    entry = "gram_matvec_block" if bv else "gram_matvec"
+    before = sm_ops.launches[entry]
+    got = (sm_ops.gram_matvec_block(xs, V) if bv
+           else sm_ops.gram_matvec(xs, V))
+    assert sm_ops.launches[entry] == before + 1
+    _scaled_close(got, sm_r.gram_matvec_block_np(x, V) if bv
+                  else sm_r.gram_matvec_np(x, V))
+    vt = torch.tensor(V.T if bv else V, dtype=torch.float32, device=cuda)
+    k1 = sm_k.gram_matvec(xs, vt.contiguous())
+    k2 = sm_k.gram_matvec(xs, vt.contiguous())
+    plain = sm_r.gram_matvec(xs, vt)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2)   # no atomics: the same bits every run
+    _scaled_close(_np(k1), _np(plain).astype(np.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,k", [(12, 2184, 30), (3, 17, 384), (1, 1, 1),
+                                   (5, 100, 30), (2, 1000, 2185)])
+def test_gram_matvec_batch_kernel_matches_plain_on_card(cuda, B, R, k):
+    rng = np.random.default_rng(B + R + k)
+    x, v = rng.normal(size=(B, R, k)), rng.normal(size=(B, k))
+    xs = sm_ops.prepare_operand(x, cuda)
+    before = sm_ops.launches["gram_matvec_batch"]
+    got = sm_ops.gram_matvec_batch(xs, v)
+    assert sm_ops.launches["gram_matvec_batch"] == before + 1
+    _scaled_close(got, sm_r.gram_matvec_batch_np(x, v))
+    vt = torch.tensor(v, dtype=torch.float32, device=cuda)
+    k1 = sm_k.gram_matvec_batch(xs, vt)
+    plain = sm_r.gram_matvec_batch(xs, vt)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, sm_k.gram_matvec_batch(xs, vt))
+    _scaled_close(_np(k1), _np(plain).astype(np.float64))

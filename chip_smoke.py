@@ -16,8 +16,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. Kernels: each kernel against its plain PyTorch version on the card,
    in the working dtype, at the serving path's shapes and a few more,
    with the repository's tolerances (bf16 atol = rtol = 3e-2, f32 2e-5);
+   decode_attention also at the serving position (every length 144) and
+   at a 32k cache, two launches bit for bit equal;
    kernel, plain and library-call device times (CUDA-graph replays
-   between CUDA events), the wrapper's per-call time, and the least
+   between CUDA events, once the card's clock has risen), the wrapper's
+   per-call time, and the least
    time the card could take (bytes over 3.35 TB/s, or operations over
    the peak rate of the inputs' type, whichever is larger). The three
    combines (coded_combine, quantized_combine, packed_sign_combine) at
@@ -42,7 +45,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    coded at p=0 and uncoded must produce equal streams. Then a few
    teacher-forced decode steps through the kernels and through the plain
    versions: equal to 1e-3 in float32, and in bf16 no farther from the
-   float32 logits than twice the plain version's bf16 error.
+   float32 logits than twice the plain version's bf16 error. Then the
+   pool step's device time by kernel family
+   (``repro_torch.launch.step_profile --full-config``).
 5. The training path: ``repro_torch.launch.train.main`` at granite-3-8b's
    full width with 2 layers (bf16 activations, float32 parameters and
    AdamW at lr 1e-4), m = 4 machines, expander d = 2, Bernoulli
@@ -75,8 +80,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    per lockstep Lanczos iteration, no plain-version run. Then the
    regime-2 campaign's wall time split into host decode, the K6 stage,
    and the covariance stage with the device time the profiler saw.
-7. A ``kernels`` JSON line (K1-K7, eight entry points), then the card
-   line, then the result line.
+7. The launch plans of the two redesigned kernels at the path shapes
+   (decode_attention's chunks, gram_matvec's strips and clusters), a
+   ``kernels`` JSON line (K1-K7, eight entry points), then the card line,
+   then the result line.
 """
 
 import json
@@ -90,6 +97,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, same sheet
 TOL = {"bfloat16": dict(atol=3e-2, rtol=3e-2),
        "float32": dict(atol=2e-5, rtol=2e-5)}
+# decode attention also within this share of max |want|: a full 32k
+# cache gives outputs of about sqrt(e / 32768) rms, far below TOL's atol,
+# and a chunk dropped from the merge exceeds this share
+DA_SCALED_TOL = 3e-2
 F32_MODEL_TOL = dict(atol=1e-3, rtol=1e-3)   # f32 logits after 40 layers
 BF16_NOISE_FACTOR = 2.0
 # The combines on general inputs: kernel and plain version do the same
@@ -201,10 +212,18 @@ def check_decode_attention(torch, dev, B, H, KVH, S, Dh, dtype, lengths,
     v = torch.randn(B, S, KVH, Dh, generator=g, device=dev).to(dt)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     out = ops.decode_attention(q, k, v, lens)
+    again = ops.decode_attention(q, k, v, lens)
     want = ref.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"decode_attention {label}: two launches "
+                             "differ")
     err = _compare(torch, out, want, TOL[dtype],
                    f"decode_attention {label}")
+    top = want.float().abs().max().item()
+    if err > DA_SCALED_TOL * top:
+        raise AssertionError(f"decode_attention {label}: max abs err {err} "
+                             f"> {DA_SCALED_TOL} * max|want| ({top})")
     used = int(sum(min(int(n), S) for n in lengths))
     esz = q.element_size()
     nbytes = (2 * used * KVH * Dh + 2 * B * H * Dh) * esz + 4 * B
@@ -995,6 +1014,40 @@ def harness_breakdown(torch, dev):
          **out)
 
 
+def step_profile():
+    """The serving pool step's device time by kernel family
+    (``repro_torch.launch.step_profile --full-config``)."""
+    from repro_torch.launch import step_profile as sp
+    out = sp.main(["--full-config"])
+    fam = out["kernel_families_ms_per_step"]
+    _say("step_profile", arch=out["arch"], pos=out["pos"],
+         decode_attention_ms_per_step=fam.get("decode_attention"),
+         host_ms_per_step=out["host_ms_per_step"],
+         graph_ms_per_step=out["graph_ms_per_step"],
+         device_ms_per_step=out["device_ms_per_step"])
+
+
+def plans(torch, dev):
+    """The launch plans the redesigned kernels chose at the path shapes:
+    K2's chunks, K7's strips, clusters and CTAs."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.decode_attention import kernel as da_k
+    from repro_torch.kernels.spectral_matvec import kernel as sm_k
+    sms = _launch.sm_count(dev)
+    da = {f"B={B} H=32 KVH=8 S={S} Dh=128 bf16":
+          da_k.plan_chunks(B, 32, 8, S, 128, 2, sms)._asdict()
+          for B, S in ((8, 1024), (8, 32768))}
+    da["CTAs at S=1024 (every chunk)"] = \
+        da["B=8 H=32 KVH=8 S=1024 Dh=128 bf16"]["groups"] * \
+        da["B=8 H=32 KVH=8 S=1024 Dh=128 bf16"]["chunks"]
+    sm = {f"B={B} R={R} k={k} bv={bv}":
+          sm_k.plan_gram(B, R, k, bv, sms)._asdict()
+          for B, R, k, bv in ((1, 2184, 30, 1), (1, 2184, 30, 8),
+                              (1, 2184, 1000, 1), (1, 2184, 1000, 8),
+                              (12, 2184, 30, 1), (12, 2184, 1000, 1))}
+    _say("plans", sms=sms, decode_attention=da, gram_matvec=sm)
+
+
 def main() -> int:
     try:
         import torch
@@ -1048,6 +1101,9 @@ def main() -> int:
         torch, dev, 8, 32, 8, 1024, 128, "bfloat16",
         rng.integers(1, 1025, 8).tolist(),
         "path B=8 H=32 KVH=8 S=1024 Dh=128 ragged")
+    check_decode_attention(torch, dev, 8, 32, 8, 1024, 128, "bfloat16",
+                           [144] * 8, "serving position B=8 S=1024 "
+                           "every length 144")
     check_decode_attention(torch, dev, 8, 32, 8, 32768, 128, "bfloat16",
                            [32768] * 8, "decode_32k B=8 S=32768 full")
     check_decode_attention(torch, dev, 8, 20, 20, 1024, 128, "bfloat16",
@@ -1103,6 +1159,9 @@ def main() -> int:
 
     teacher_forced(torch, dev)
     phases["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step_profile()
+    phases["step_profile"] = time.perf_counter() - t0
 
     # ---- the training path: four runs, each zeroed before, read after
     t0 = time.perf_counter()
@@ -1120,6 +1179,7 @@ def main() -> int:
     harness_breakdown(torch, dev)
     phases["harness_breakdown"] = time.perf_counter() - t0
     _say("phases", seconds=phases)
+    plans(torch, dev)
 
     launches = {name: launches.get(name, 0) + train_counts[name]
                 for name in train_counts}

@@ -37,3 +37,17 @@ def raise_on_error(rc: int, error_string) -> None:
     never runs, and a later synchronize would not report it."""
     if rc != 0:
         raise RuntimeError(error_string(rc).decode())
+
+
+_sm_counts = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device`` (a CUDA tensor's device,
+    with its index), read once."""
+    idx = device.index
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = torch.cuda.get_device_properties(idx).multi_processor_count
+        _sm_counts[idx] = n
+    return n

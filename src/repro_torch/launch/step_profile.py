@@ -93,7 +93,7 @@ def main(argv=None) -> dict:
     families = {}
     for name, ms in by_name.items():
         fam = ("rmsnorm" if "rmsnorm_kernel" in name else
-               "decode_attention" if "decode_attention_kernel" in name else
+               "decode_attention" if "decode_attention" in name else
                "gemm" if any(g in name for g in ("gemm", "nvjet", "splitK"))
                else "other")
         families[fam] = families.get(fam, 0.0) + ms / args.steps

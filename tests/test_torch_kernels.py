@@ -208,6 +208,98 @@ def test_kernel_forced_on_cpu_tensor_raises(monkeypatch):
     assert (rn_ops.launches, da_ops.launches) == counts
 
 
+# The split of the cache over CTAs (flash-decoding): the planner reads
+# shapes and the SM count only; each chunk's (m, l, acc) state merges in
+# chunk order by the kernel's formula.
+
+from repro_torch.kernels.decode_attention import kernel as da_k
+
+DA_PATH = dict(B=8, H=32, KVH=8, Dh=128)      # granite-3-8b serving
+
+
+@pytest.mark.parametrize("S", [1, 7, 128, 1024, 32768])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_decode_attention_chunk_plan(S, itemsize):
+    import inspect
+    assert "lengths" not in inspect.signature(da_k.plan_chunks).parameters
+    p = da_k.plan_chunks(S=S, itemsize=itemsize, **DA_PATH)
+    assert p == da_k.plan_chunks(S=S, itemsize=itemsize, **DA_PATH)
+    G = DA_PATH["H"] // DA_PATH["KVH"]
+    assert p.gt == 4 and p.groups == DA_PATH["B"] * DA_PATH["KVH"]
+    assert p.tile == da_k.tile_positions(DA_PATH["Dh"], itemsize)
+    assert p.chunk % p.tile == 0 and p.chunk >= 1
+    assert (p.chunks - 1) * p.chunk < S <= p.chunks * p.chunk
+    assert 1 <= p.chunks <= da_k.MAX_CHUNKS
+    assert p.state == (2 + DA_PATH["Dh"]) * p.gt and G % p.gt == 0
+    # chunks no shorter than MIN_CHUNK unless the cache is; enough CTAs
+    # for the card once the cache is long enough to split
+    assert p.chunks == 1 or p.chunk >= da_k.MIN_CHUNK
+    if S >= 1024:
+        assert p.groups * p.chunks >= 2 * da_k.H100_SMS
+
+
+def _chunked_plain(q, k, v, lengths, chunk):
+    """The plain version cut at the planner's chunks: each chunk's fp32
+    (m, l, acc) over its valid positions, merged in chunk order as the
+    kernel's last CTA merges them; zeros where lengths[b] = 0."""
+    B, H, Dh = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    qf = q.reshape(B, KVH, G, Dh).float()
+    out = torch.zeros(B, KVH, G, Dh)
+    for b in range(B):
+        n = int(min(max(int(lengths[b]), 0), S))
+        states = []
+        for t0 in range(0, n, chunk):
+            t1 = min(t0 + chunk, n)
+            kc = k[b, t0:t1].float().permute(1, 0, 2)        # (KVH, T, Dh)
+            vc = v[b, t0:t1].float().permute(1, 0, 2)
+            s = torch.einsum("hgd,htd->hgt", qf[b], kc) * Dh ** -0.5
+            m = s.amax(-1)
+            p = torch.exp(s - m[..., None])
+            states.append((m, p.sum(-1), torch.einsum("hgt,htd->hgd", p,
+                                                      vc)))
+        if not states:
+            continue
+        mt = torch.stack([m for m, _, _ in states]).amax(0)
+        ll = torch.zeros_like(mt)
+        acc = torch.zeros(KVH, G, Dh)
+        for m, l_, a in states:
+            w = torch.exp(m - mt)
+            ll = ll + l_ * w
+            acc = acc + a * w[..., None]
+        out[b] = acc / ll.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, Dh).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_chunk_merge_matches_plain_and_jax(jx, dtype):
+    """The planner's chunks, merged in order, against the plain version
+    and the JAX kernel in interpret mode: lengths 0, 1, chunk - 1,
+    chunk + 1 and S. At length 0 the kernel writes zeros (the plain
+    version's softmax over nothing is undefined there)."""
+    B, H, KVH, S, Dh = 5, 8, 2, 512, 64
+    itemsize = 2 if dtype == "bfloat16" else 4
+    plan = da_k.plan_chunks(B, H, KVH, S, Dh, itemsize)
+    assert plan.chunks > 2
+    c = plan.chunk
+    lengths = np.array([0, 1, c - 1, c + 1, S], np.int32)
+    rng = np.random.default_rng(8)
+    (qj, qt), (kj, kt), (vj, vt), _ = _da_inputs(jx.jnp, rng, B, H, KVH, S,
+                                                 Dh, dtype)
+    got = _chunked_plain(qt, kt, vt, torch.from_numpy(lengths), c)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    lj = jx.jnp.asarray(lengths)
+    want_ref = da_r.decode_attention(qt, kt, vt, torch.from_numpy(lengths))
+    want_jax = jx.da_k.decode_attention(qj, kj, vj, lj, block_k=128,
+                                        interpret=True)
+    np.testing.assert_allclose(_np(got)[1:], _np(want_ref)[1:],
+                               **_tol(dtype))
+    np.testing.assert_allclose(_np(got)[1:], _np(want_jax)[1:],
+                               **_tol(dtype))
+
+
 # ----------------------------------------------------- coded combines
 
 @pytest.fixture(scope="module")
@@ -450,6 +542,91 @@ def test_decode_attention_kernel_matches_plain_on_card(
 @pytest.mark.cuda
 def test_decode_attention_kernel_ignores_values_beyond_length(cuda):
     _beyond_length_case(cuda)
+
+
+def _repeat_graph_and_burst(fn, want):
+    """Two launches give the same bits, a CUDA-graph replay of the call
+    gives them too, and so do 20 launches back to back (a last-CTA
+    ticket that failed to reset to 0 would break the second of them)."""
+    again = fn()
+    torch.cuda.synchronize()
+    assert torch.equal(want, again)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(want, captured)
+    burst = [fn() for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(want, o) for o in burst)
+
+
+DA_SCALED_TOL = 3e-2     # max |err| <= this * max |want|
+
+
+def _da_card_inputs(cuda, B, H, KVH, S, Dh, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return (torch.randn(B, H, Dh, generator=g, device=cuda).to(dt),
+            torch.randn(B, S, KVH, Dh, generator=g, device=cuda).to(dt),
+            torch.randn(B, S, KVH, Dh, generator=g, device=cuda).to(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [0, 1, 32768])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("Dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_many_chunks_on_card(cuda, length, G, Dh,
+                                                     dtype):
+    """B = 1 over a 32k cache: many chunks, merged by the last CTA; zeros
+    at length 0. The outputs of a full 32k cache are small (about
+    sqrt(e / 32768) rms), so the error is also held against max |want|:
+    a chunk dropped from the merge exceeds DA_SCALED_TOL of it."""
+    B, KVH, S = 1, 2, 32768
+    q, k, v = _da_card_inputs(cuda, B, G * KVH, KVH, S, Dh, dtype, G + Dh)
+    assert da_k.plan_chunks(B, G * KVH, KVH, S, Dh,
+                            q.element_size()).chunks > 1
+    lens = torch.tensor([length], dtype=torch.int32, device=cuda)
+    out = da_ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    if length == 0:
+        assert torch.equal(out, torch.zeros_like(out))
+    else:
+        want = _np(da_r.decode_attention(q, k, v, lens))
+        np.testing.assert_allclose(_np(out), want, **_tol(dtype))
+        assert np.abs(_np(out) - want).max() <= \
+            DA_SCALED_TOL * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KVH,S,Dh,lengths", [
+    (8, 32, 8, 1024, 128, "ragged"), (8, 32, 8, 1024, 128, "144"),
+    (1, 32, 8, 32768, 128, "full"), (3, 20, 20, 300, 128, "edges"),
+    (2, 16, 2, 4096, 64, "edges")])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_repeats_in_graphs_on_card(
+        cuda, B, H, KVH, S, Dh, lengths, dtype):
+    q, k, v = _da_card_inputs(cuda, B, H, KVH, S, Dh, dtype, B + S)
+    rng = np.random.default_rng(S)
+    n = {"ragged": rng.integers(1, S + 1, B), "144": [144] * B,
+         "full": [S] * B, "edges": ([0, 1, S] * B)[:B]}[lengths]
+    lens = torch.tensor(n, dtype=torch.int32, device=cuda)
+    fn = lambda: da_ops.decode_attention(q, k, v, lens)  # noqa: E731
+    out = fn()
+    torch.cuda.synchronize()
+    want = da_r.decode_attention(q, k, v, lens)
+    live = lens > 0
+    np.testing.assert_allclose(_np(out[live]), _np(want[live]),
+                               **_tol(dtype))
+    assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+    _repeat_graph_and_burst(fn, out)
 
 
 def _card_combine_case(cuda, kind, n, D, dtype, exact):
@@ -725,16 +902,54 @@ def test_harness_kernels_forced_on_cpu_raise(monkeypatch):
                                     (2184, 1, 8), (1000, 1, 8), (1, 1, 1),
                                     (7, 1, 1), (17, 3, 1), (5, 1, 4096),
                                     (100_000, 1, 1)])
-def test_gram_matvec_strip_sizing(R, B, bv):
-    """The CUDA wrapper's strips cover every row, fit the (rows, bv)
-    projection tile in 48 KB of shared memory, and keep the partials
-    within an eighth of X where X has rows to spare."""
-    rows = sm_k.rows_per_strip(R, B, bv)
-    strips = -(-R // rows)
-    assert 1 <= rows <= R and rows * bv <= sm_k._MAX_SMEM_FLOATS
-    assert (strips - 1) * rows < R <= strips * rows
-    if R >= 8 * bv:
-        assert strips * bv <= max(1, R // 8) + bv
+@pytest.mark.parametrize("k", [30, 1000])
+def test_gram_matvec_plan(R, B, bv, k):
+    """The CUDA wrapper's plan covers every row, fits shared memory, keeps
+    the partials that reach device memory within an eighth of X, and
+    gives the card as many CTAs as X has bytes for."""
+    sms = sm_k.H100_SMS
+    p = sm_k.plan_gram(B, R, k, bv, sms)
+    assert p == sm_k.plan_gram(B, R, k, bv, sms)
+    strips = -(-R // p.rows)
+    assert 1 <= p.rows <= R and (strips - 1) * p.rows < R
+    assert 1 <= p.cluster <= (sm_k.MAX_CLUSTER_ONE if B * p.passes
+                              * p.blocks == 1 else sm_k.MAX_CLUSTER)
+    assert p.clusters == -(-strips // p.cluster)
+    assert p.passes == -(-bv // sm_k.JB) and p.passes * p.blocks <= 65535
+    assert p.blocks * sm_k.CPT * p.ct >= k > (p.blocks - 1) * sm_k.CPT * p.ct
+    # shared memory: the ring within its budget, the CTA within 227 KB
+    assert p.stages == 0 or 2 <= p.stages <= sm_k.MAX_STAGES
+    # rows straight into registers only when two ring stages cannot fit
+    assert p.stages > 0 or sm_k.smem_bytes(p.tile, 2, k, bv) > \
+        sm_k.RING_BYTES
+    assert 1 <= p.tile <= min(R, sm_k.MAX_TILE)
+    if k > 32:      # the register tile holds every row of a ring stage
+        assert p.tile <= sm_k.wide_rows(bv) * (sm_k.THREADS // p.ct)
+    ring = 4 * p.stages * sm_k.slot_floats(p.tile, k)
+    assert ring <= sm_k.MAX_SMEM_BYTES
+    jbt = 1 if bv == 1 else sm_k.JB
+    vs = jbt * k if k <= 32 or (jbt > 1 and jbt * k <= sm_k.MAX_VS_FLOATS) \
+        else 0
+    assert p.smem_bytes >= 4 * (vs + p.tile * jbt) + max(
+        ring, 4 * jbt * sm_k.CPT * sm_k.THREADS)
+    assert p.smem_bytes <= sm_k.MAX_SMEM_BYTES
+    # partials in device memory only across clusters, and bounded
+    if p.clusters == 1:
+        assert p.partial_floats == 0 and p.tickets == 0
+    else:
+        assert p.partial_floats <= B * R * k // 8
+        # the last CTA of a cluster rank sums its slice of every cluster
+        slice_floats = (1 if bv == 1 else sm_k.JB) * sm_k.CPT * p.ct
+        if 4 * B * R * k <= sm_k.BIG_BYTES_PER_SM * sms:
+            assert (p.clusters * slice_floats // p.cluster
+                    <= sm_k.FINAL_FLOATS)
+        assert p.tickets == B * p.passes * p.blocks * p.cluster
+    # the card filled as far as X allows (MIN_CTA_BYTES of X a CTA), up
+    # to the strips lost to whole clusters
+    units = B * p.passes * p.blocks
+    by_bytes = -(-4 * R * k // sm_k.MIN_CTA_BYTES)
+    assert p.ctas >= min(sms, min(by_bytes, R) * units) * 2 // 3
+    assert p.ctas == p.clusters * p.cluster * units
 
 
 # ------------------------------------------ harness kernels on the card
@@ -814,3 +1029,28 @@ def test_gram_matvec_batch_kernel_matches_plain_on_card(cuda, B, R, k):
     torch.cuda.synchronize()
     assert torch.equal(k1, sm_k.gram_matvec_batch(xs, vt))
     _scaled_close(_np(k1), _np(plain).astype(np.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 30, 31, 1000])
+@pytest.mark.parametrize("bv", [1, 7, 8, 9, 16])
+@pytest.mark.parametrize("B", [1, 12])
+def test_gram_kernel_rhs_and_widths_on_card(cuda, k, bv, B):
+    """One launch per call over B slices and bv right-hand sides (passes
+    of 8), against the float64 oracle and the plain version, repeated
+    bit for bit, inside a CUDA graph and 20 times back to back."""
+    R = 2184
+    rng = np.random.default_rng(k * 100 + bv + B)
+    x, V = rng.normal(size=(B, R, k)), rng.normal(size=(B, bv, k))
+    xs = torch.tensor(x, dtype=torch.float32, device=cuda)
+    vt = torch.tensor(V, dtype=torch.float32, device=cuda)
+    fn = lambda: sm_k._gram(xs, vt)  # noqa: E731
+    out = fn()
+    torch.cuda.synchronize()
+    assert out.shape == (B, bv, k)
+    for b in range(B):
+        _scaled_close(_np(out[b]).T, sm_r.gram_matvec_block_np(x[b],
+                                                                V[b].T))
+        _scaled_close(_np(out[b]), _np(sm_r.gram_matvec(
+            xs[b], vt[b])).astype(np.float64))
+    _repeat_graph_and_burst(fn, out)

@@ -80,8 +80,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    per lockstep Lanczos iteration, no plain-version run. Then the
    regime-2 campaign's wall time split into host decode, the K6 stage,
    and the covariance stage with the device time the profiler saw.
-7. The launch plans of the two redesigned kernels at the path shapes
-   (decode_attention's chunks, gram_matvec's strips and clusters), a
+7. The launch plans of the four redesigned kernels at the path shapes
+   (rmsnorm's and fused_error's threads a row, decode_attention's
+   chunks, gram_matvec's strips and clusters; each timed K1 and K6 row
+   also carries its plan), a
    ``kernels`` JSON line (K1-K7, eight entry points), then the card line,
    then the result line.
 """
@@ -176,9 +178,18 @@ def _compare(torch, got, want, tol, what):
     return err
 
 
+def _plan(module, name, *args):
+    """A kernel's launch plan at these arguments, as a dict; None where
+    the checkout being timed (``tools/compare_trees.py``) has no such
+    planner."""
+    fn = getattr(module, name, None)
+    return None if fn is None else fn(*args)._asdict()
+
+
 def check_rmsnorm(torch, dev, rows_shape, dtype, label):
     import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm import ops, ref
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.rmsnorm import kernel, ops, ref
     g = torch.Generator(device=dev).manual_seed(1)
     dt = getattr(torch, dtype)
     d = rows_shape[-1]
@@ -192,8 +203,15 @@ def check_rmsnorm(torch, dev, rows_shape, dtype, label):
     nbytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
     bound, by = _bound_ms(nbytes, 4 * rows * d, dtype)
     scale_lib = scale.to(dt)
+    # what the card takes to read x and write an output of its shape: a
+    # device copy, the floor that moving these bytes reaches in practice
+    from repro_torch.launch.timing import graph_ms
+    copy = torch.empty_like(x)
     row = dict(kernel="rmsnorm", shape=label, dtype=dtype,
                max_abs_err=err, bound_ms=bound, bound_by=by,
+               copy_ms=graph_ms(lambda: copy.copy_(x)),
+               plan=_plan(kernel, "plan_rows", rows, d, x.element_size(),
+                          _launch.sm_count(dev)),
                **_times(torch, lambda: ops.rmsnorm(x, scale),
                         lambda: ref.rmsnorm(x, scale),
                         lambda: F.rms_norm(x, (d,), scale_lib, 1e-6)))
@@ -618,6 +636,7 @@ def _scaled_err(got, want):
 def check_fused_error(torch, dev, T, n, time_it):
     """K6 against its plain torch version and the float64 oracle."""
     import numpy as np
+    from repro_torch.kernels import _launch
     from repro_torch.kernels.batched_alpha import kernel, ref
     rng = np.random.default_rng(T * 7 + n)
     a = rng.normal(1.0, 0.2, size=(T, n))
@@ -632,7 +651,8 @@ def check_fused_error(torch, dev, T, n, time_it):
         raise AssertionError(f"{label}: kernel disagrees with the float64 "
                              "oracle")
     row = dict(kernel="fused_error", shape=label, dtype="float32",
-               max_abs_err=err)
+               max_abs_err=err, plan=_plan(kernel, "plan_error", T, n,
+                                           _launch.sm_count(dev)))
     if time_it:
         bound, by = _bound_ms(4 * (T * n + T), 3 * T * n, "float32")
         row.update(bound_ms=bound, bound_by=by, **_times(
@@ -1022,6 +1042,7 @@ def step_profile():
     fam = out["kernel_families_ms_per_step"]
     _say("step_profile", arch=out["arch"], pos=out["pos"],
          decode_attention_ms_per_step=fam.get("decode_attention"),
+         rmsnorm_ms_per_step=fam.get("rmsnorm"),
          host_ms_per_step=out["host_ms_per_step"],
          graph_ms_per_step=out["graph_ms_per_step"],
          device_ms_per_step=out["device_ms_per_step"])
@@ -1029,11 +1050,19 @@ def step_profile():
 
 def plans(torch, dev):
     """The launch plans the redesigned kernels chose at the path shapes:
-    K2's chunks, K7's strips, clusters and CTAs."""
+    K1's and K6's threads a row, K2's chunks, K7's strips, clusters and
+    CTAs."""
     from repro_torch.kernels import _launch
+    from repro_torch.kernels.batched_alpha import kernel as ba_k
     from repro_torch.kernels.decode_attention import kernel as da_k
+    from repro_torch.kernels.rmsnorm import kernel as rn_k
     from repro_torch.kernels.spectral_matvec import kernel as sm_k
     sms = _launch.sm_count(dev)
+    rn = {f"rows={rows} d=4096 itemsize={size}":
+          rn_k.plan_rows(rows, 4096, size, sms)._asdict()
+          for rows, size in ((8, 2), (8, 4), (8192, 2))}
+    ba = {f"trials={T} n=2184": ba_k.plan_error(T, 2184, sms)._asdict()
+          for T in (30, 1000)}
     da = {f"B={B} H=32 KVH=8 S={S} Dh=128 bf16":
           da_k.plan_chunks(B, 32, 8, S, 128, 2, sms)._asdict()
           for B, S in ((8, 1024), (8, 32768))}
@@ -1045,7 +1074,8 @@ def plans(torch, dev):
           for B, R, k, bv in ((1, 2184, 30, 1), (1, 2184, 30, 8),
                               (1, 2184, 1000, 1), (1, 2184, 1000, 8),
                               (12, 2184, 30, 1), (12, 2184, 1000, 1))}
-    _say("plans", sms=sms, decode_attention=da, gram_matvec=sm)
+    _say("plans", sms=sms, rmsnorm=rn, fused_error=ba,
+         decode_attention=da, gram_matvec=sm)
 
 
 def main() -> int:

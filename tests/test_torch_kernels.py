@@ -27,6 +27,7 @@ kernel must equal its plain version bit for bit on any input: both do
 the same rounded multiply and add per row, in row order.
 """
 
+import ctypes
 import types
 
 import numpy as np
@@ -131,6 +132,75 @@ def test_rmsnorm_backward_matches_autodiff_of_plain_version():
     (rn_r.rmsnorm(*b) ** 2).sum().backward()
     for u, w in zip(a, b):
         torch.testing.assert_close(u.grad, w.grad, rtol=1e-4, atol=1e-5)
+
+
+# The launch plan of the CUDA rmsnorm: threads a row, vectors a thread in
+# registers, rows a CTA -- from the shape and the SM count only.
+
+from repro_torch.kernels.rmsnorm import kernel as rn_k
+
+
+def _plan_is_pure(fn, names):
+    import inspect
+    params = list(inspect.signature(fn).parameters)
+    assert params[:len(names)] == names
+    assert not {"x", "alphas", "a", "data"} & set(params)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 132, 8192])
+@pytest.mark.parametrize("d", [128, 4095, 4096, 5120, 12800])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_rmsnorm_row_plan(rows, d, itemsize):
+    """Every vector of a row is held by exactly one thread, every row by
+    one row group; threads and shared memory within the card's limits;
+    the register path only where it holds the row."""
+    _plan_is_pure(rn_k.plan_rows, ["rows", "d", "itemsize", "sms"])
+    sms = rn_k.H100_SMS
+    p = rn_k.plan_rows(rows, d, itemsize, sms)
+    assert p == rn_k.plan_rows(rows, d, itemsize, sms)
+    n = 16 // itemsize
+    nv = d // n
+    assert p.tpr % 32 == 0 and p.rpc >= 1 and p.tpr * p.rpc <= 1024
+    assert rn_k.SMEM_BYTES <= 48 * 1024
+    assert (p.ctas - 1) * p.rpc < rows <= p.ctas * p.rpc
+    holds = d % n == 0 and nv <= rn_k.VPTS[-1] * rn_k.MAX_THREADS
+    assert (p.vpt > 0) == holds
+    assert rn_k.plan_rows(rows, d, itemsize, sms, aligned=False).vpt == 0
+    if not p.vpt:
+        assert (p.tpr, p.rpc, p.ctas) == (rn_k.LOOP_THREADS, 1, rows)
+        return
+    assert p.vpt in rn_k.VPTS and p.tpr * p.rpc <= rn_k.MAX_THREADS
+    # at most ROW_VPT vectors a thread while the row may take more warps,
+    # and more than ROW_THREADS threads a row only to keep to that
+    assert p.vpt <= rn_k.ROW_VPT or p.tpr == rn_k.MAX_THREADS
+    assert p.tpr <= rn_k.ROW_THREADS or p.vpt >= rn_k.ROW_VPT
+    # thread t of a row holds vectors t + k * tpr, k < vpt, below nv
+    held = (np.arange(p.tpr)[:, None]
+            + p.tpr * np.arange(p.vpt)[None, :]).ravel()
+    held = held[held < nv]
+    assert np.array_equal(np.sort(held), np.arange(nv))
+    assert p.tpr - 32 < -(-nv // p.vpt)      # no warp without a vector
+    assert p.vpt == 1 or (p.vpt // 2) * p.tpr < nv   # fewest vectors
+    # enough row warps for the card where the row has vectors for them
+    assert rows * p.tpr // 32 >= min(
+        rn_k.WARPS_PER_SM * sms,
+        rows * min(rn_k.ROW_THREADS // 32, -(-nv // 32))) // 2
+
+
+@pytest.mark.parametrize("rows,d,itemsize,want", [
+    (8, 4096, 2, (2, 256, 1)),       # the decode step: a CTA a row
+    (8, 4096, 4, (4, 256, 1)),
+    (8192, 4096, 2, (8, 64, 2)),     # training: two warps a row, 2 a CTA
+    (8192, 4096, 4, (8, 128, 1)),
+    (132, 4096, 2, (2, 256, 1)),
+    (8, 12800, 2, (8, 224, 1)),
+    (8, 32768, 2, (8, 512, 1)),      # past ROW_THREADS at 8 vectors
+    (4, 65536, 2, (16, 512, 1)),     # the widest row the registers hold
+    (4, 65536, 4, (0, 256, 1)),      # too wide: the loop kernel
+    (8, 4095, 2, (0, 256, 1))])      # not whole vectors: the loop kernel
+def test_rmsnorm_row_plan_regimes(rows, d, itemsize, want):
+    p = rn_k.plan_rows(rows, d, itemsize)
+    assert (p.vpt, p.tpr, p.rpc) == want
 
 
 # -------------------------------------------------- decode attention
@@ -497,8 +567,17 @@ def test_combine_kernels_forced_on_cpu_tensor_raise(monkeypatch):
 
 # ------------------------------------------------------ on the card
 
+# every plan regime: a CTA a row (8 rows), a warp a row (8192), rows in
+# between, wide rows (12800, 65536 bf16), and the loop kernel (d = 4095,
+# 130 and 33 * 130 not whole vectors; 65536 f32 and 70000 past the
+# registers)
+RMS_CARD_SHAPES = RMS_SHAPES + [
+    (8, 1, 4096), (33, 130), (1, 128), (132, 4096), (8192, 4096),
+    (8, 5120), (8, 12800), (4, 65536), (2, 70000), (8, 4095)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", RMS_SHAPES + [(8, 1, 4096), (33, 130)])
+@pytest.mark.parametrize("shape", RMS_CARD_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, dtype):
     rng = np.random.default_rng(5)
@@ -513,6 +592,123 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, shape, dtype):
     assert out.dtype == x.dtype and out.shape == x.shape
     np.testing.assert_allclose(_np(out), _np(rn_r.rmsnorm(x, s)),
                                **_tol(dtype))
+
+
+class _EdgeData(ctypes.Structure):
+    """cudaGraphEdgeData: from_port, to_port, type, 5 reserved bytes."""
+    _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+
+def _graph_edge_types(graph):
+    """The dependency type of every edge of a kept CUDA graph
+    (cudaGraphGetEdges_v2; 1 is cudaGraphDependencyTypeProgrammatic)."""
+    rt = ctypes.CDLL("libcudart.so.12")
+    fn = rt.cudaGraphGetEdges_v2
+    fn.restype = ctypes.c_int
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert fn(raw, None, None, None, ctypes.byref(n)) == 0
+    frm, to = (ctypes.c_void_p * n.value)(), (ctypes.c_void_p * n.value)()
+    data = (_EdgeData * n.value)()
+    assert fn(raw, frm, to, data, ctypes.byref(n)) == 0
+    return [e.type for e in data]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1, 4096), (8192, 4096), (8, 4095)])
+def test_rmsnorm_graph_keeps_programmatic_edge_on_card(cuda, shape):
+    """Captured in a CUDA graph right after the torch kernel that writes
+    its x, rmsnorm keeps its programmatic dependent launch: the edge
+    from the writer is programmatic, and the replay is right."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    src = torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    s = torch.randn(shape[-1], generator=g, device=cuda)
+    x = torch.empty_like(src)
+    fn = lambda: (torch.add(src, 1.0, out=x),  # noqa: E731
+                  rn_ops.rmsnorm(x, s))[1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = fn()
+    assert 1 in _graph_edge_types(graph)
+    graph.instantiate()
+    src.mul_(-2.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(out), _np(rn_r.rmsnorm(src + 1.0, s)),
+                               **_tol("bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(8, 4096), (8192, 4096), (3, 4095)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_misaligned_view_on_card(cuda, rows, d, dtype):
+    """A contiguous view that starts one element past a 16-byte boundary
+    goes to the loop kernel's scalar path, and agrees with the plain
+    version and with the kernel on an aligned copy."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(rows + d)
+    base = torch.randn(rows * d + 1, generator=g, device=cuda).to(dt)
+    x = base[1:].view(rows, d)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    s = torch.randn(d, generator=g, device=cuda)
+    assert rn_k.plan_rows(rows, d, x.element_size(), aligned=False).vpt == 0
+    out = rn_ops.rmsnorm(x, s)
+    aligned = rn_ops.rmsnorm(x.clone(), s)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(out), _np(rn_r.rmsnorm(x, s)),
+                               **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(aligned), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1, 4096), (8192, 4096), (8, 4095)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_after_writer_in_graph_on_card(cuda, shape, dtype):
+    """rmsnorm right after the torch kernel that writes its x, four times
+    in one CUDA graph: each output is that of the x just written (the
+    kernel waits for its writer before it reads x), and repeats --
+    eager, replayed, back to back -- are bitwise."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    src = torch.randn(shape, generator=g, device=cuda).to(dt)
+    s = torch.randn(shape[-1], generator=g, device=cuda)
+    x = torch.empty_like(src)
+
+    def fn():
+        outs = []
+        for i in range(4):
+            torch.add(src, float(i + 1), out=x)
+            outs.append(rn_ops.rmsnorm(x, s))
+        return torch.stack(outs)
+
+    out = fn()
+    torch.cuda.synchronize()
+    for i in range(4):
+        np.testing.assert_allclose(
+            _np(out[i]), _np(rn_r.rmsnorm(src + float(i + 1), s)),
+            **_tol(dtype))
+    _repeat_graph_and_burst(fn, out)
+    # a graph replayed on new values of src: the writer's new x each time
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    for step in range(3):
+        src.copy_(torch.randn(shape, generator=g, device=cuda).to(dt))
+        graph.replay()
+        want = fn()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, want), step
 
 
 @pytest.mark.cuda
@@ -952,10 +1148,70 @@ def test_gram_matvec_plan(R, B, bv, k):
     assert p.ctas == p.clusters * p.cluster * units
 
 
+from repro_torch.kernels.batched_alpha import kernel as ba_k
+
+
+def _fused_error_reads(p, n, head):
+    """How often the kernel reads each element of a row whose first
+    16-byte aligned element is ``head`` floats in: the scalar head, the
+    rounds of vpt vector loads a thread, the scalar tail."""
+    seen = np.zeros(n, np.int64)
+    t = np.arange(p.tpr)
+    seen[t[t < head]] += 1
+    nvec = (n - head) // 4
+    for c in range(0, nvec, p.vpt * p.tpr):
+        i = (c + t[:, None] + p.tpr * np.arange(p.vpt)[None, :]).ravel()
+        for j in range(4):
+            np.add.at(seen, head + 4 * i[i < nvec] + j, 1)
+    tail = head + 4 * nvec
+    seen[tail + t[t < n - tail]] += 1
+    return seen
+
+
+@pytest.mark.parametrize("trials", [1, 30, 132, 1000])
+@pytest.mark.parametrize("n", [3, 2184, 2185])
+def test_fused_error_plan(trials, n):
+    """Every element of a row is read exactly once at any row offset,
+    every row by one row group; threads and shared memory within the
+    card's limits; a row that fits 16 loads a thread in one round."""
+    _plan_is_pure(ba_k.plan_error, ["trials", "n", "sms"])
+    sms = ba_k.H100_SMS
+    p = ba_k.plan_error(trials, n, sms)
+    assert p == ba_k.plan_error(trials, n, sms)
+    assert p.vpt in ba_k.VPTS and p.tpr % 32 == 0 and p.rpc >= 1
+    assert p.tpr * p.rpc <= ba_k.MAX_THREADS
+    assert ba_k.SMEM_BYTES <= 48 * 1024
+    assert (p.ctas - 1) * p.rpc < trials <= p.ctas * p.rpc
+    for head in range(min(3, n) + 1):
+        assert (_fused_error_reads(p, n, head) == 1).all()
+    nv = -(-n // 4)
+    assert p.rounds == -(-nv // (p.vpt * p.tpr))
+    if nv <= ba_k.VPTS[-1] * ba_k.MAX_THREADS:
+        assert p.rounds == 1
+        assert p.tpr - 32 < -(-nv // p.vpt)  # no warp without a load
+    # a row takes the threads its vectors can use, at any trial count
+    assert p.tpr == ba_k.plan_error(1, n, sms).tpr
+    if nv >= ba_k.MAX_THREADS:
+        assert p.tpr >= 128 and p.rpc == 1
+
+
+@pytest.mark.parametrize("trials,n,want", [
+    (30, 2184, (4, 160, 1, 1)),      # the regime-2 campaign: a CTA a row
+    (1000, 2184, (4, 160, 1, 1)),    # the throughput point: the same
+    (1, 3, (1, 32, 1, 1)),
+    (1, 20000, (16, 256, 1, 2))])    # past 16 loads a thread: two rounds
+def test_fused_error_plan_regimes(trials, n, want):
+    p = ba_k.plan_error(trials, n)
+    assert (p.vpt, p.tpr, p.rpc, p.rounds) == want
+    for head in range(4):
+        assert (_fused_error_reads(p, n, head) == 1).all()
+
+
 # ------------------------------------------ harness kernels on the card
 
 CARD_BA_SHAPES = [(30, 2184), (1000, 2184), (1, 1), (7, 130), (33, 384),
-                  (1000, 2185), (5, 3)]
+                  (1000, 2185), (5, 3), (1, 3), (132, 2184), (30, 2185),
+                  (1, 20000)]
 CARD_SM_SHAPES = [(2184, 30), (2184, 1000), (1, 1), (7, 130), (33, 384),
                   (1000, 2185), (17, 384)]
 
@@ -972,7 +1228,6 @@ def test_fused_error_kernel_matches_plain_on_card(cuda, T, n):
     assert ba_ops.launches == before + 1 and s == 1.0
     np.testing.assert_allclose(errs, ba_r.fused_error_np(a, 1.0),
                                rtol=2e-5, atol=2e-5)
-    from repro_torch.kernels.batched_alpha import kernel as ba_k
     got = ba_k.fused_error(t, scale)
     torch.cuda.synchronize()
     np.testing.assert_allclose(_np(got), _np(ba_r.fused_error(t, scale)),
@@ -985,6 +1240,23 @@ def test_fused_error_kernel_matches_plain_on_card(cuda, T, n):
         np.testing.assert_allclose(
             _np(ba_k.fused_error(u.contiguous(), scale)),
             ba_r.fused_error_np(a[:, 1:], scale), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,n", [(30, 2184), (1000, 2184), (1, 3),
+                                 (132, 2185), (1, 20000)])
+def test_fused_error_kernel_repeats_in_graphs_on_card(cuda, T, n):
+    """The plan's fixed order: two launches, a CUDA-graph replay and 20
+    launches back to back give the same bits."""
+    rng = np.random.default_rng(T * 3 + n)
+    t = torch.tensor(rng.normal(1.0, 0.2, size=(T, n)), dtype=torch.float32,
+                     device=cuda)
+    fn = lambda: ba_k.fused_error(t, 1.1)  # noqa: E731
+    out = fn()
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(out), _np(ba_r.fused_error(t, 1.1)),
+                               rtol=2e-5, atol=2e-5)
+    _repeat_graph_and_burst(fn, out)
 
 
 @pytest.mark.cuda

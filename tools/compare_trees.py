@@ -1,6 +1,6 @@
-"""Time the decode-attention (K2) and Gram-matvec (K7) rows of
-``chip_smoke.py`` in several checkouts on one card, every checkout with
-this checkout's measuring code:
+"""Time the rmsnorm (K1), decode-attention (K2), fused-error (K6) and
+Gram-matvec (K7) rows of ``chip_smoke.py`` in several checkouts on one
+card, every checkout with this checkout's measuring code:
 
     python tools/compare_trees.py [--step-profile] CHECKOUT [CHECKOUT ...]
 
@@ -9,12 +9,15 @@ checkouts), one process a run. Each run imports its checkout's
 ``src/repro_torch`` and builds that checkout's kernels, but measures with
 this checkout's ``chip_smoke.py`` and ``src/repro_torch/launch/timing.py``
 (loaded in place of the checkout's own), so that every checkout is timed
-the same way. Shapes: decode_attention at the serving shape, at the
-serving position (every length 144) and at a 32k cache; the Gram
-matvecs at the harness shapes. With ``--step-profile`` each run also
-takes the serving step profile (``step_profile --full-config``). The
-last line is a JSON object: per shape and run, the kernel's device ms,
-the wrapper's ms per call and the library call's ms. Needs an NVIDIA GPU.
+the same way. Shapes: rmsnorm at the decode step's (8, 1, 4096) in
+bf16 and f32 and at the training table's (8192, 4096) bf16;
+decode_attention at the serving shape, at the serving position (every
+length 144) and at a 32k cache; fused_error and the Gram matvecs at the
+harness shapes. With ``--step-profile`` each run also takes the serving
+step profile (``step_profile --full-config``). The last line is a JSON
+object: per shape and run, the kernel's device ms, the wrapper's ms per
+call, the library call's ms and the launch plan where the checkout has
+a planner. Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -42,8 +45,15 @@ repro_torch.launch.timing = timing
 import numpy as np, torch
 import chip_smoke as cs
 from repro_torch.kernels import build
-build.build(["decode_attention", "spectral_matvec"])
+build.build(["rmsnorm", "decode_attention", "batched_alpha",
+             "spectral_matvec"])
 dev = torch.device("cuda")
+for shape, dtype, label in (((8, 1, 4096), "bfloat16", "path (8,1,4096)"),
+                            ((8, 1, 4096), "float32", "(8,1,4096) f32"),
+                            ((8192, 4096), "bfloat16", "(8192,4096)")):
+    cs.check_rmsnorm(torch, dev, shape, dtype, label)
+for T in (30, 1000):
+    cs.check_fused_error(torch, dev, T, 2184, time_it=True)
 lens = np.random.default_rng(0).integers(1, 1025, 8).tolist()
 for S, n, label in ((1024, lens, "path"), (1024, [144] * 8, "position 144"),
                     (32768, [32768] * 8, "32k")):
@@ -83,7 +93,8 @@ def main(argv=None) -> dict:
                 row = json.loads(body)
                 table.setdefault(row["shape"], {})[label] = {
                     key: row.get(key) for key in
-                    ("kernel_ms", "kernel_call_ms", "library_ms")}
+                    ("kernel_ms", "kernel_call_ms", "library_ms",
+                     "copy_ms", "plan")}
             elif tag == "step_profile":
                 table.setdefault("step_profile", {})[label] = json.loads(body)
         print(f"run {label} {root} done", flush=True)

@@ -28,7 +28,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    stacked ``wi_gate`` leaf, and D = 8,192, the stacked norm scales),
    at odd widths (D = 1, 7, 9, 1,000,003), and on exact inputs (integer
    payloads, power-of-two weights and scales, a dead row), where the
-   comparison is bitwise and also against the float64 NumPy oracles.
+   comparison is bitwise and also against the float64 NumPy oracles;
+   quantized_combine also at the elastic run's 3 rows of D = 104,857,600.
    The harness kernels -- fused_error (K6), gram_matvec with a 1-D v and
    with 8 right-hand sides (K7a) and gram_matvec_batch (K7b) -- at the
    harness path's shapes (trials = 30 and 1000 over n = 2184; the
@@ -62,13 +63,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    loss streams must agree to ``LOSS_RTOL``. Then one float32 SGD step:
    the manual collective through coded_combine against the dedup path
    through autograd, on the same parameters, weights and batch, the
-   parameters equal to rtol 2e-4 and atol 2e-5. Each phase's seconds
+   parameters equal to rtol 2e-4 and atol 2e-5. Then elastic training,
+   the same model and settings: CI's chaos smoke (``--straggler-p 0
+   --chaos kill:1@3``) under int8, so machine 1 is declared dead after 3
+   missed heartbeats and the code is re-drawn over 3 survivors
+   (quantized_combine on 4 blocks, then on 3): CI's five conditions on
+   the event log, the log equal to the summary, one quantized_combine
+   launch per leaf and step across both generations, 5 rmsnorm launches
+   per forward, the plain run's loss stream within ``LOSS_RTOL`` and
+   ``rebuild_s`` printed. Then the scheme zoo and adaptive decoding: the
+   affine plane AG(2,2) (``--scheme bibd --replication 3 --machines 6``,
+   n = 4 blocks) under sign_packed, and cyclic-MDS under a Markov
+   process with ``--adaptive adaptive`` (its ``adaptive`` block
+   printed), each against its plain run. Then the coding runtime at
+   m = 6552 with ``device="cuda"`` (its debias batch through the torch
+   propagator) and ``device="cpu"``: equal scales. Each phase's seconds
    are printed.
 6. The harness path (``repro_torch.launch.harness``) on the card at the
    paper's Section VIII-B scale (m = 6552, d = 6, the LPS X^{5,13}
-   graph, n = 2184): the CLI with ``--full`` (regime 1 and regime 2,
-   the adversarial table at m = 6552, the q = 3 scheme zoo, the
-   convergence grid) with its paper-claim asserts; then the torch label
+   graph, n = 2184): the CLI with ``--full`` (regime 1 and regime 2 and
+   the compression grid, the adversarial table at m = 6552, the q = 3
+   scheme zoo, the convergence grid, the lower bounds of Props A.1/A.3,
+   the Theorem IV.1 expansion ablation) with its paper-claim asserts,
+   the new sections held to the CPU's rows (errors within
+   1e-4 |cpu| + 1e-7, covariance spectra within 5e-3 |cpu| + 1e-9, the
+   compression grid bit for bit); then the torch label
    propagator at (1000, 6552) bitwise against the NumPy one, cold and
    warm; ``monte_carlo_error`` at trials = 1000; the regime-2 campaign
    (blocked Lanczos, K7b) against per-scheme ``sweep_error`` (lanczos,
@@ -124,6 +143,21 @@ TRAIN_RUNS = (("dedup none", []),
               ("dedup int8", ["--compress", "int8"]),
               ("dedup sign_packed", ["--compress", "sign_packed"]),
               ("manual none", ["--collective", "manual"]))
+# Elastic training: CI's chaos smoke (kill machine 1 at step 3, no
+# sampled stragglers) under int8, so quantized_combine runs on 4 blocks
+# and, after the re-assignment over 3 survivors, on 3.
+ELASTIC_ARGS = ["--straggler-p", "0", "--compress", "int8", "--chaos",
+                "kill:1@3"]
+ELASTIC_ROWS = 3
+# The scheme zoo and adaptive decoding: the affine plane AG(2,2) (m = 6
+# machines, n = 4 blocks) under sign_packed, and cyclic-MDS under a
+# Markov straggler process with the adaptive policy.
+ZOO_RUNS = (("bibd sign_packed", ["--scheme", "bibd", "--replication", "3",
+                                  "--machines", "6", "--compress",
+                                  "sign_packed"]),
+            ("cyclic_mds adaptive", ["--scheme", "cyclic_mds",
+                                     "--straggler-model", "markov",
+                                     "--adaptive", "adaptive"]))
 SERVE_ARGS = ["--arch", "granite-3-8b", "--full-config", "--requests",
               "16", "--slots", "8", "--prompt-len", "128",
               "--prompt-spread", "32", "--max-new-tokens", "32",
@@ -282,12 +316,12 @@ def check_beyond_length(torch, dev):
          "lengths[b]", ok=True)
 
 
-def _combine_inputs(torch, dev, kind, d, dtype, exact, seed):
-    """(payload, scales, w) for one combine. Exact inputs: integer
-    payloads, power-of-two weights and scales, so every float32 partial
-    sum is exact; both kinds carry a dead row (w = 0)."""
+def _combine_inputs(torch, dev, kind, d, dtype, exact, seed,
+                    n=COMBINE_ROWS):
+    """(payload, scales, w) for one combine of n rows. Exact inputs:
+    integer payloads, power-of-two weights and scales, so every float32
+    partial sum is exact; both kinds carry a dead row (w = 0)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    n = COMBINE_ROWS
     if exact:
         w = 2.0 ** torch.randint(-3, 3, (n,), generator=g,
                                  device=dev).float()
@@ -312,14 +346,15 @@ def _combine_inputs(torch, dev, kind, d, dtype, exact, seed):
     return x, scales, w
 
 
-def check_combine(torch, dev, kind, d, dtype, exact, time_it=True):
-    """One combine against its plain version on the card: bitwise on
-    exact inputs (and against the float64 NumPy oracle of the quantized
-    combines up to D = 1,000,003), else within COMBINE_TOL."""
+def check_combine(torch, dev, kind, d, dtype, exact, time_it=True,
+                  n=COMBINE_ROWS):
+    """One combine of n rows against its plain version on the card:
+    bitwise on exact inputs (and against the float64 NumPy oracle of the
+    quantized combines up to D = 1,000,003), else within COMBINE_TOL."""
     import numpy as np
     from repro_torch.kernels.coded_combine import ops, ref
     x, scales, w = _combine_inputs(torch, dev, kind, d, dtype, exact,
-                                   seed=d % 1000 + 7 * exact)
+                                   seed=d % 1000 + 7 * exact + n, n=n)
     if kind == "coded_combine":
         args, plain = (x, w), ref.coded_combine
     elif kind == "quantized_combine":
@@ -330,8 +365,7 @@ def check_combine(torch, dev, kind, d, dtype, exact, time_it=True):
     fn = getattr(ops, kind)
     out, want = fn(*args), plain(*args)
     torch.cuda.synchronize()
-    label = f"{kind} n={COMBINE_ROWS} D={d} {dtype}" + \
-        (" exact" if exact else "")
+    label = f"{kind} n={n} D={d} {dtype}" + (" exact" if exact else "")
     err = (out.float() - want.float()).abs().max().item()
     if exact:
         if not torch.equal(out, want):
@@ -347,7 +381,7 @@ def check_combine(torch, dev, kind, d, dtype, exact, time_it=True):
                                      "float64 NumPy oracle")
         # the dead row's payload must not matter: replace it, same bits
         x2 = x.clone()
-        x2[COMBINE_ROWS // 2] = x2[0]
+        x2[n // 2] = x2[0]
         if not torch.equal(fn(x2, *args[1:]), out):
             raise AssertionError(f"{label}: a dead row changed the output")
     else:
@@ -356,8 +390,8 @@ def check_combine(torch, dev, kind, d, dtype, exact, time_it=True):
                exact=exact)
     if time_it:
         out_bytes = d * out.element_size()
-        nbytes = x.numel() * x.element_size() + out_bytes + 8 * COMBINE_ROWS
-        bound, by = _bound_ms(nbytes, 2 * COMBINE_ROWS * d, "float32")
+        nbytes = x.numel() * x.element_size() + out_bytes + 8 * n
+        bound, by = _bound_ms(nbytes, 2 * n * d, "float32")
         library = None
         if kind == "coded_combine":
             wl = w.to(x.dtype)
@@ -389,6 +423,11 @@ def combine_checks(torch, dev):
                 check_combine(torch, dev, kind, d, dt, exact=False)
                 check_combine(torch, dev, kind, d, dt, exact=True,
                               time_it=False)
+    # the elastic run's shape: 3 blocks after the re-assignment
+    check_combine(torch, dev, "quantized_combine", PATH_D[0], "int8",
+                  exact=False, n=ELASTIC_ROWS)
+    check_combine(torch, dev, "quantized_combine", PATH_D[0], "int8",
+                  exact=True, time_it=False, n=ELASTIC_ROWS)
     check_width_mismatch(torch, dev)
     return rows
 
@@ -439,7 +478,6 @@ def _run_train(torch, cfg, extra, force):
 def train_runs(torch, dev):
     """The four training runs, each through the kernels and then through
     the plain versions; returns the kernel runs' launch counts."""
-    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.convert import param_shapes
     cfg = get_config("granite-3-8b").with_overrides(n_layers=2)
@@ -462,18 +500,8 @@ def train_runs(torch, dev):
         if counts != want:
             raise AssertionError(f"train {label}: launch counts {counts} "
                                  f"!= {want}")
-        r, rcounts, rwall, _ = _run_train(torch, cfg, extra, "ref")
-        if any(rcounts.values()):
-            raise AssertionError(f"train {label}: the plain run launched "
-                                 f"kernels {rcounts}")
-        got, ref_l = (np.asarray(x["losses"]) for x in (s, r))
-        if got.shape != (steps,) or not np.isfinite(got).all():
-            raise AssertionError(f"train {label}: bad loss stream {got}")
-        gap = float(np.max(np.abs(got - ref_l) / np.abs(ref_l)))
-        if not gap <= LOSS_RTOL:
-            raise AssertionError(
-                f"train {label}: kernel and plain loss streams differ by "
-                f"{gap} relative (> {LOSS_RTOL})")
+        r, rwall = _plain_run(torch, cfg, extra, label)
+        gap = _loss_gap(label, s, r, steps)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
         _say("train", run=label, arch=cfg.name, n_layers=cfg.n_layers,
@@ -487,6 +515,156 @@ def train_runs(torch, dev):
              comm_bytes_per_step=s["comm_bytes_per_step"],
              decode_calls=s["decode_calls"])
     return totals
+
+
+def _loss_gap(label, s, r, steps):
+    """Largest relative gap between the kernel and plain loss streams."""
+    import numpy as np
+    got, ref_l = (np.asarray(x["losses"]) for x in (s, r))
+    if got.shape != (steps,) or not np.isfinite(got).all():
+        raise AssertionError(f"train {label}: bad loss stream {got}")
+    gap = float(np.max(np.abs(got - ref_l) / np.abs(ref_l)))
+    if not gap <= LOSS_RTOL:
+        raise AssertionError(f"train {label}: kernel and plain loss streams "
+                             f"differ by {gap} relative (> {LOSS_RTOL})")
+    return gap
+
+
+def _plain_run(torch, cfg, extra, label):
+    r, counts, wall, _ = _run_train(torch, cfg, extra, "ref")
+    if any(counts.values()):
+        raise AssertionError(f"train {label}: the plain run launched "
+                             f"kernels {counts}")
+    return r, wall
+
+
+def elastic_run(torch, dev):
+    """CI's chaos smoke at full width: machine 1 killed at step 3,
+    detected after 3 missed heartbeats, the code re-drawn over the 3
+    survivors; int8 combines on 4 blocks, then on 3. Returns the kernel
+    run's launch counts."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import param_shapes
+    cfg = get_config("granite-3-8b").with_overrides(n_layers=2)
+    n_leaves = len(param_shapes(cfg))
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "events.json")
+        s, counts, wall, peak = _run_train(
+            torch, cfg, ELASTIC_ARGS + ["--event-log", log], None)
+        with open(log) as f:
+            logged = json.load(f)
+    chaos = s["chaos"]
+    if logged != chaos:
+        raise AssertionError("the event log differs from the summary's "
+                             "chaos object")
+    got = (chaos["dead_machines"], chaos["steps_to_detect"],
+           len(chaos["reassignments"]), chaos["m_final"],
+           chaos["generations"])
+    if got != ([1], {"1": 3}, 1, 3, 2):
+        raise AssertionError(f"elastic: chaos summary {got}")
+    at = chaos["reassignments"][0]["step"]
+    rows = 4 * at + ELASTIC_ROWS * (steps - at)   # per-block forwards
+    want = {"rmsnorm": 5 * rows, "decode_attention": 0, "coded_combine": 0,
+            "quantized_combine": n_leaves * steps,
+            "packed_sign_combine": 0}
+    if counts != want:
+        raise AssertionError(f"elastic: launch counts {counts} != {want}")
+    r, rwall = _plain_run(torch, cfg, ELASTIC_ARGS, "elastic")
+    if r["chaos"]["events"] != chaos["events"]:
+        raise AssertionError("elastic: the plain run saw other events")
+    gap = _loss_gap("elastic", s, r, steps)
+    _say("train_elastic", arch=cfg.name, n_layers=cfg.n_layers,
+         chaos=chaos["spec"], compress=s["compress"],
+         dead_machines=chaos["dead_machines"],
+         steps_to_detect=chaos["steps_to_detect"],
+         degraded_steps=chaos["degraded_steps"],
+         reassignments=chaos["reassignments"],
+         rebuild_s=chaos["reassignments"][0]["rebuild_s"],
+         m_final=chaos["m_final"], generations=chaos["generations"],
+         losses=s["losses"], plain_losses=r["losses"], loss_rel_gap=gap,
+         loss_rtol=LOSS_RTOL, launches=counts,
+         ms_per_step=s["loop_s"] / steps * 1e3,
+         plain_ms_per_step=r["loop_s"] / steps * 1e3, wall_s=wall,
+         plain_wall_s=rwall, peak_mem_gb=peak / 1e9)
+    return counts
+
+
+def zoo_runs(torch, dev):
+    """The scheme zoo and adaptive decoding at full width, each through
+    the kernels and then the plain versions. Returns the kernel runs'
+    summed launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import param_shapes
+    cfg = get_config("granite-3-8b").with_overrides(n_layers=2)
+    n_leaves = len(param_shapes(cfg))
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    totals = {}
+    for label, extra in ZOO_RUNS:
+        s, counts, wall, peak = _run_train(torch, cfg, extra, None)
+        packed = "sign_packed" in extra
+        forwards = 4 if packed else 1      # both schemes have n = 4 blocks
+        want = {"rmsnorm": 5 * forwards * steps, "decode_attention": 0,
+                "coded_combine": 0, "quantized_combine": 0,
+                "packed_sign_combine": n_leaves * steps if packed else 0}
+        if counts != want:
+            raise AssertionError(f"train {label}: launch counts {counts} "
+                                 f"!= {want}")
+        r, rwall = _plain_run(torch, cfg, extra, label)
+        if s.get("adaptive") != r.get("adaptive"):
+            raise AssertionError(f"train {label}: adaptive blocks differ "
+                                 f"{s.get('adaptive')} {r.get('adaptive')}")
+        gap = _loss_gap(label, s, r, steps)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        _say("train_zoo", run=label, arch=cfg.name, n_layers=cfg.n_layers,
+             scheme=s["scheme"], m_workers=s["m_workers"],
+             compress=s["compress"], adaptive=s.get("adaptive"),
+             losses=s["losses"], plain_losses=r["losses"],
+             loss_rel_gap=gap, loss_rtol=LOSS_RTOL, launches=counts,
+             ms_per_step=s["loop_s"] / steps * 1e3,
+             plain_ms_per_step=r["loop_s"] / steps * 1e3, wall_s=wall,
+             plain_wall_s=rwall, peak_mem_gb=peak / 1e9,
+             decode_calls=s["decode_calls"])
+    return totals
+
+
+def runtime_at_scale(torch, dev):
+    """The coding runtime at m = 6552 (the LPS X^{5,13} expander, d = 6):
+    its debias batch (256 x 6552 mask entries) decodes through the torch
+    label propagator on the card, or on the host with device="cpu"; the
+    two scales are equal bit for bit."""
+    from repro_torch.configs import CodingConfig
+    from repro_torch.core import batched_decoding as bd
+    from repro_torch.dist import coded_train
+    cfg = CodingConfig(scheme="expander", replication=6, straggler_p=0.2)
+    calls = []
+    orig = bd._propagate_torch
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return orig(*a, **kw)
+
+    bd._propagate_torch = counting
+    try:
+        t0 = time.perf_counter()
+        card = coded_train.CodingRuntime(cfg, 6552, device=dev).scale
+        card_s = time.perf_counter() - t0
+        on_card = len(calls)
+        t0 = time.perf_counter()
+        host = coded_train.CodingRuntime(cfg, 6552, device="cpu").scale
+        host_s = time.perf_counter() - t0
+    finally:
+        bd._propagate_torch = orig
+    if on_card < 1 or len(calls) != on_card:
+        raise AssertionError(f"runtime at scale: propagator calls "
+                             f"{on_card} on the card, {len(calls)} in all")
+    if card != host:
+        raise AssertionError(f"runtime scale on the card {card} != on the "
+                             f"host {host}")
+    _say("runtime_at_scale", m=6552, replication=6, p=0.2, trials=256,
+         scale=card, bitwise=True, card_s=card_s, host_s=host_s)
 
 
 def f32_manual_vs_autograd(torch, dev):
@@ -811,6 +989,45 @@ def _compare_rows(card, cpu, what):
     return gaps
 
 
+def new_sections_vs_cpu(secs):
+    """The bounds and expansion sections and the compression grid of the
+    --full CLI on the card against the same sections on the CPU: errors
+    within ERR_*, covariance spectra within COV_*, the compression grid
+    (host NumPy at m = 24) bit for bit."""
+    from repro_torch.launch import harness
+    t0 = time.perf_counter()
+    cpu = {n: harness.run_section(n, False, "cpu")
+           for n in ("bounds", "expansion")}
+    cpu_s = time.perf_counter() - t0
+    if secs["decoding_error"]["compression"] != \
+            harness.compression(device="cpu"):
+        raise AssertionError("compression grid: card rows != cpu rows")
+    gaps = {"err_rel": 0.0, "cov_rel": 0.0}
+
+    def check(kind, got, want, where):
+        rtol, atol = (ERR_RTOL, ERR_ATOL) if kind == "err" else \
+            (COV_RTOL, COV_ATOL)
+        if not _within(got, want, rtol, atol):
+            raise AssertionError(f"{where}: card {got} vs cpu {want}")
+        if abs(want) > atol:
+            gaps[f"{kind}_rel"] = max(gaps[f"{kind}_rel"],
+                                      abs(got - want) / abs(want))
+
+    for rg, rc_ in zip(secs["bounds"]["rows"], cpu["bounds"]["rows"]):
+        for key in ("ours_optimal", "ours_fixed", "frc_optimal"):
+            check("err", rg[key], rc_[key], f"bounds p={rc_['p']} {key}")
+    for rg, rc_ in zip(secs["expansion"]["rows"], cpu["expansion"]["rows"]):
+        check("err", rg["error"], rc_["error"], f"expansion {rc_['graph']}")
+        for a, b in zip(rg["cov_top3"], rc_["cov_top3"]):
+            check("cov", a, b, f"expansion {rc_['graph']} cov_top3")
+    _say("harness_new_sections", bounds=secs["bounds"]["rows"],
+         expansion=secs["expansion"]["rows"],
+         compression_rows=len(secs["decoding_error"]["compression"]),
+         compression_bitwise=True, gaps_vs_cpu=gaps, cpu_s=cpu_s,
+         tolerances=dict(err=[ERR_RTOL, ERR_ATOL],
+                         cov=[COV_RTOL, COV_ATOL]))
+
+
 def harness_path(torch, dev):
     """The harness on the card at paper scale, step by step, each with
     its counts zeroed before and read after. Returns the summed counts."""
@@ -851,7 +1068,9 @@ def harness_path(torch, dev):
     secs = summary["sections"]
     n_rows = (3 * 6 + 2 * 6          # regime 1 and 2: scheme x p rows
               + 2 * 6                # adversarial: ours and frc
-              + len(secs["zoo"]["rows"]))
+              + len(secs["zoo"]["rows"])
+              + 3 * len(secs["bounds"]["rows"])   # three schemes a row
+              + len(secs["expansion"]["rows"]))
     if counts["fused_error"] != n_rows:
         raise AssertionError(f"harness cli: {counts['fused_error']} "
                              f"fused_error launches for {n_rows} rows")
@@ -868,6 +1087,7 @@ def harness_path(torch, dev):
                                         "ours_fixed_cov")}
                   for r in secs["decoding_error"]["rows"]
                   if r["regime"] == "m6552_d6_LPS"])
+    new_sections_vs_cpu(secs)
 
     A = tc.expander_assignment(6552, 6, vertex_transitive=True, seed=0)
 
@@ -1200,6 +1420,17 @@ def main() -> int:
     t0 = time.perf_counter()
     f32_manual_vs_autograd(torch, dev)
     phases["f32_step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, v in elastic_run(torch, dev).items():
+        train_counts[name] += v
+    phases["train_elastic"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, v in zoo_runs(torch, dev).items():
+        train_counts[name] += v
+    phases["train_zoo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runtime_at_scale(torch, dev)
+    phases["runtime_at_scale"] = time.perf_counter() - t0
 
     # ---- the harness path: each step zeroed before, read after
     t0 = time.perf_counter()

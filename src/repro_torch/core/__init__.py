@@ -18,7 +18,8 @@ The port's counterpart of ``repro.core``, with the same public surface
 - adaptive:    online p-hat estimation and per-step decoding policies
 - step_weights: straggler model factory, mask sources, w*/alpha, served
                blocks, the Monte-Carlo debias scale
-- compress:    none / int8 / sign / sign_packed gradient codecs
+- compress:    none / int8 / sign / sign_packed gradient codecs and the
+               error-vs-p-vs-bits ``compression_campaign``
 - theory:      the paper's closed-form bounds
 - debias:      Prop B.1 black-box debiasing
 - coded_gd:    Algorithms 2 & 3 (single-host logical view)
@@ -69,7 +70,7 @@ from .step_weights import (make_straggler_model, sample_mask_stream,
                            batched_step_weights, debias_scale_mc)
 from . import step_weights  # the module: step_weights.step_weights etc.
 from . import compress
-from .compress import Codec, get_codec
+from .compress import Codec, compression_campaign, get_codec
 from . import theory
 from .debias import debias_assignment, estimate_mean_alpha
 from .coded_gd import (LeastSquares, GDTrace, gcod, precompute_alphas,
@@ -103,7 +104,7 @@ __all__ = [
     "make_policy", "replay_policy", "policy_regret_report",
     "step_weights", "make_straggler_model", "sample_mask_stream",
     "batched_step_weights", "debias_scale_mc",
-    "compress", "Codec", "get_codec",
+    "compress", "Codec", "compression_campaign", "get_codec",
     "theory", "debias_assignment", "estimate_mean_alpha",
     "LeastSquares", "GDTrace", "gcod", "precompute_alphas", "sgd_alg",
     "uncoded_gd",

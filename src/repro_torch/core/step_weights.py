@@ -233,12 +233,17 @@ def batched_step_weights(assignment: Assignment, masks, *,
 
 def debias_scale_mc(assignment: Assignment, *, p: float,
                     method: str = "optimal", trials: int = 256,
-                    seed: int = 0) -> float:
+                    seed: int = 0, backend: str = "auto",
+                    device=None) -> float:
     """Monte-Carlo alpha-bar debias factor under Bernoulli(p)
     stragglers: one ``batched_alpha`` call over the sweep protocol's
-    shared-uniform draw."""
+    shared-uniform draw. ``backend`` and ``device`` go to
+    ``batched_alpha``: at ``backend="auto"`` a batch of at least
+    200,000 mask entries takes the torch propagator on ``device``
+    (``None`` means the card), unless ``device`` is the CPU."""
     if trials <= 0:
         raise ValueError("trials must be positive")
     masks = bernoulli_uniforms(assignment.m, trials, seed) >= p
-    alphas = batched_alpha(assignment, masks, method=method, p=p)
+    alphas = batched_alpha(assignment, masks, method=method, p=p,
+                           backend=backend, device=device)
     return debias_scale(alphas)

@@ -33,8 +33,8 @@ worker shard combines its local machines, then a psum over the shards.
 Here the group is one shard holding all m machines -- the reference's
 own ``make_test_mesh((1, 1))`` case -- so the local combine is the whole
 reduction and the psum is the identity. Streaming the combine over
-machine chunks, FSDP and the elastic re-assignment wait for the
-distributed slice; the adaptive decoding policy for the harness slice.
+machine chunks, FSDP and the allreduces over a real process group wait
+for the distributed slice.
 
 Per-row gradients (the reference's ``jax.vmap(jax.value_and_grad)``)
 are one backward pass per row, written into a preallocated (rows, ...)
@@ -42,10 +42,14 @@ stack per leaf: rows are independent, so this computes the same
 gradients and holds one row's activations at a time.
 
 Host side, ``CodingRuntime`` draws one alive mask per step from its
-``MaskSource``, decodes it through ``core.step_weights`` and memoises
-repeated masks; ``weights_lookahead`` decodes a horizon of masks in one
-batch, and ``LookaheadPrefetcher`` runs it on the driver's worker
-thread, bit-identically to the per-step stream.
+``MaskSource``, decodes it through ``core.step_weights`` (or through the
+decoder an adaptive policy picks for the step) and memoises repeated
+masks; ``weights_lookahead`` decodes a horizon of masks in one batch,
+and ``LookaheadPrefetcher`` runs it on the driver's worker thread,
+bit-identically to the per-step stream. ``make_assignment`` builds any
+scheme of the zoo. After permanent deaths ``elastic_reassign`` re-draws
+the code over the survivors (``elastic_coding``, seeded by
+``elastic_seed``), as the reference's chaos path does.
 """
 
 from __future__ import annotations
@@ -60,8 +64,14 @@ from repro_torch import tree as T
 from repro_torch.configs import CodingConfig, ModelConfig
 from repro_torch.core import compress as compress_mod
 from repro_torch.core import step_weights as sw
-from repro_torch.core.assignment import (Assignment, expander_assignment,
+from repro_torch.core.adaptive import (DecodingPolicy,
+                                       OnlineStragglerEstimator,
+                                       PolicyDecision, make_policy)
+from repro_torch.core.assignment import (Assignment, bibd_assignment,
+                                         cyclic_mds_assignment,
+                                         expander_assignment,
                                          frc_assignment,
+                                         random_matching_assignment,
                                          uncoded_assignment)
 from repro_torch.kernels.coded_combine import ops as cc_ops
 from repro_torch.models import model as M
@@ -448,9 +458,89 @@ def make_assignment(coding: CodingConfig, m: int) -> Assignment:
         return frc_assignment(m, coding.replication)
     if coding.scheme == "uncoded":
         return uncoded_assignment(m)
+    if coding.scheme == "cyclic_mds":
+        return cyclic_mds_assignment(m, coding.replication)
+    if coding.scheme == "bibd":
+        # The design whose machine count is m: the affine plane of order
+        # q = r - 1 has q^2 + q = (r-1)r machines, else a symmetric
+        # design puts one machine on each point (v = m, k = r).
+        r = coding.replication
+        if m == (r - 1) * r:
+            return bibd_assignment((r - 1) ** 2, r - 1, design="affine")
+        return bibd_assignment(m, r, design="symmetric")
+    if coding.scheme == "random_regular":
+        return random_matching_assignment(m, coding.replication,
+                                          seed=coding.seed)
     raise ValueError(f"unknown scheme {coding.scheme!r} "
-                     "(expander | frc | uncoded; the scheme zoo is not "
-                     "ported yet)")
+                     "(expander | frc | uncoded | cyclic_mds | bibd "
+                     "| random_regular)")
+
+
+def elastic_seed(seed: int, generation: int) -> int:
+    """The seed of elastic generation ``generation`` of a run seeded
+    ``seed``: a pure function, so a running driver's re-assignment and a
+    fresh driver launched on the survivors derive the same code."""
+    if generation < 0:
+        raise ValueError("generation must be >= 0")
+    return seed + 1_000_003 * generation
+
+
+def elastic_coding(coding: CodingConfig, m_new: int,
+                   generation: int) -> CodingConfig:
+    """The CodingConfig of generation ``generation`` over ``m_new``
+    survivors.
+
+    The replication degree degrades to the largest feasible d' <= d
+    (the expander needs d | 2m', the FRC d | m'); one survivor, or two
+    under the expander, fall back to uncoded. Deterministic, so a fresh
+    run on the survivors rebuilds the same assignment."""
+    if m_new < 1:
+        raise ValueError("need at least one survivor")
+    seed = elastic_seed(coding.seed, generation)
+    if m_new == 1 or (coding.scheme == "expander" and m_new == 2):
+        return dataclasses.replace(coding, scheme="uncoded",
+                                   replication=1, seed=seed)
+    d = min(coding.replication, m_new)
+    if coding.scheme == "expander":
+        # d = 2 (the cycle) always divides 2m', so this stops at a
+        # valid graph scheme for m' >= 3.
+        while d > 2 and (2 * m_new) % d:
+            d -= 1
+        d = max(d, 2)
+    elif coding.scheme == "frc":
+        while d > 1 and m_new % d:
+            d -= 1
+    return dataclasses.replace(coding, replication=d, seed=seed)
+
+
+def elastic_reassign(runtime: "CodingRuntime", dead, *, generation: int,
+                     mask_source: Optional[sw.MaskSource] = None
+                     ) -> "CodingRuntime":
+    """Re-draw the code over the survivors after permanent deaths.
+
+    ``dead`` holds logical machine ids of ``runtime`` (the driver's
+    ``SurvivorMap`` translates original ids). Returns a new
+    ``CodingRuntime`` over m' = m - len(dead) machines with the
+    generation's coding (``elastic_coding``), a new debias scale and an
+    empty decode cache; ``debias``, ``debias_trials``, ``cache_size``,
+    ``adaptive`` and ``device`` carry over. Training goes on from the
+    live parameters and optimizer state, and the trajectory after the
+    death equals a fresh run on the survivors from the same state.
+    """
+    dead = np.atleast_1d(np.asarray(dead, dtype=np.int64))
+    if np.unique(dead).size != dead.size:
+        raise ValueError("duplicate dead machine ids")
+    if dead.size and (dead.min() < 0 or dead.max() >= runtime.m):
+        raise ValueError(f"dead ids {dead.tolist()} out of range for "
+                         f"m={runtime.m}")
+    m_new = runtime.m - int(dead.size)
+    coding = elastic_coding(runtime.coding, m_new, generation)
+    return CodingRuntime(coding, m_new, debias=runtime.debias,
+                         debias_trials=runtime.debias_trials,
+                         cache_size=runtime.cache_size,
+                         mask_source=mask_source,
+                         adaptive=runtime.adaptive,
+                         device=runtime.device)
 
 
 @dataclasses.dataclass
@@ -460,11 +550,16 @@ class CodingRuntime:
     ``step_weights()`` takes this round's alive mask from the mask
     source (by default sampled from the configured straggler model) and
     returns the debiased decoding weights w (w_j = 0 on stragglers),
-    memoised by mask. The alpha-bar debias scale is estimated once at
-    construction: one batched decode of a Bernoulli mask batch, or, for
-    the adversarial model, the exact scale of its one fixed mask. The
-    adaptive decoding policy (``adaptive``) waits for the harness slice:
-    only None is accepted.
+    memoised by (method, p, mask). The alpha-bar debias scale is
+    estimated once at construction: one batched decode of a Bernoulli
+    mask batch on ``device`` (``None`` means the card, which that decode
+    reaches only at >= 200,000 mask entries), or, for the adversarial
+    model, the exact scale of its one fixed mask.
+
+    ``adaptive`` (None | "adaptive" | "always_optimal" | "always_fixed"
+    | a ``DecodingPolicy``) makes every round decide its decoder from
+    the online straggler estimate before the round's mask is observed,
+    then observe it; None keeps the configured ``decoding``.
     """
 
     coding: CodingConfig
@@ -474,12 +569,9 @@ class CodingRuntime:
     cache_size: int = 4096
     mask_source: Optional[sw.MaskSource] = None
     adaptive: Optional[object] = None
+    device: Optional[object] = None
 
     def __post_init__(self):
-        if self.adaptive is not None:
-            raise NotImplementedError(
-                "the adaptive decoding policy (core/adaptive.py) waits "
-                "for the harness slice of the port")
         self.assignment = make_assignment(self.coding, self.m)
         self.model = sw.make_straggler_model(
             self.assignment, self.coding.straggler_model,
@@ -492,8 +584,22 @@ class CodingRuntime:
             raise ValueError(
                 f"mask source is over m={self.mask_source.m} machines, "
                 f"runtime has m={self.m}")
+        self.policy: Optional[DecodingPolicy] = None
+        self.estimator: Optional[OnlineStragglerEstimator] = None
+        self.last_decision: Optional[PolicyDecision] = None
+        self.decision_counts: Dict[str, int] = {}
+        if self.adaptive is not None:
+            self.policy = make_policy(self.adaptive,
+                                      p=self.coding.straggler_p)
+            # the configured p is the estimator's prior
+            self.estimator = OnlineStragglerEstimator(
+                self.m, prior_p=min(max(self.coding.straggler_p, 0.0),
+                                    0.99))
         self.scale = 1.0
-        if self.debias and self.coding.decoding == "optimal":
+        # A policy may decode optimally on any step, so it needs the
+        # optimal decode's scale, which applies to optimal decodes only.
+        if self.debias and (self.coding.decoding == "optimal"
+                            or self.policy is not None):
             if self.coding.straggler_model == "adversarial":
                 _, alpha = sw.step_weights(
                     self.assignment, self.model.sample(self.rng),
@@ -507,7 +613,7 @@ class CodingRuntime:
                 self.scale = sw.debias_scale_mc(
                     self.assignment, p=self.coding.straggler_p,
                     trials=self.debias_trials,
-                    seed=self.coding.seed + 0x5EED)
+                    seed=self.coding.seed + 0x5EED, device=self.device)
         self._cache: Dict[tuple, np.ndarray] = {}
         self.decode_calls = 0
         self.steps_sampled = 0
@@ -526,33 +632,63 @@ class CodingRuntime:
             self._cache.pop(next(iter(self._cache)))
         self._cache[key] = w
 
-    def _key(self, alive: np.ndarray) -> tuple:
-        return (self.coding.decoding, float(self.coding.straggler_p),
-                alive.tobytes())
+    def weights_for(self, alive: np.ndarray, *,
+                    method: Optional[str] = None,
+                    p: Optional[float] = None) -> np.ndarray:
+        """Memoised decode of one (m,) alive mask -> w float32.
 
-    def weights_for(self, alive: np.ndarray) -> np.ndarray:
-        """Memoised decode of one (m,) alive mask -> w float32."""
+        ``method`` and ``p`` default to the configured decoding; a
+        policy passes its decision. The memo key carries (method, p), so
+        two decoders never alias, and the debias scale applies to
+        optimal decodes only."""
         alive = np.asarray(alive, dtype=bool)
         if alive.shape != (self.m,):
             raise ValueError(f"mask must be ({self.m},), "
                              f"got {alive.shape}")
-        key = self._key(alive)
+        if method is None:
+            method = self.coding.decoding
+        if p is None:
+            p = self.coding.straggler_p
+        key = (method, float(p), alive.tobytes())
         w = self._cache.get(key)
         if w is None:
-            method = self.coding.decoding
             scale = self.scale if method == "optimal" else 1.0
             w, _ = sw.step_weights(self.assignment, alive, method=method,
-                                   p=self.coding.straggler_p, scale=scale)
+                                   p=p, scale=scale)
             w = w.astype(np.float32)
             self._remember(key, w)
             self.decode_calls += 1
+        return w
+
+    def _decide(self) -> PolicyDecision:
+        """One decision from the estimator's past-only state (decide,
+        use, then observe)."""
+        decision = self.policy.decide(self.estimator.estimate())
+        self.last_decision = decision
+        self.decision_counts[decision.method] = \
+            self.decision_counts.get(decision.method, 0) + 1
+        return decision
+
+    def _policy_weights(self, alive: np.ndarray) -> np.ndarray:
+        decision = self._decide()
+        w = self.weights_for(alive, method=decision.method, p=decision.p)
+        self.estimator.observe(alive)
         return w
 
     def step_weights(self) -> Tuple[np.ndarray, np.ndarray]:
         """One round: (w (m,) float32, alive (m,) bool)."""
         alive = self.mask_source.next_mask()
         self.steps_sampled += 1
+        if self.policy is not None:
+            return self._policy_weights(alive), alive
         return self.weights_for(alive), alive
+
+    def suggested_lookahead(self) -> int:
+        """The policy's prefetch horizon for the current estimate (>= 1;
+        1 without a policy). Consumes no round."""
+        if self.policy is None:
+            return 1
+        return self.policy.decide(self.estimator.estimate()).lookahead
 
     def decode_batch(self, masks) -> Tuple[np.ndarray, np.ndarray]:
         """Batched (T, m) masks -> (W, alphas)."""
@@ -569,13 +705,18 @@ class CodingRuntime:
         """Pre-sample the next ``horizon`` rounds and decode the novel
         masks in one ``decode_batch`` call: (W (horizon, m) float32,
         alive (horizon, m) bool), bit-identical to ``horizon`` calls of
-        ``step_weights``."""
+        ``step_weights``. Under a policy each round decides, decodes and
+        observes in turn through ``weights_for``, as ``step_weights``
+        does."""
         if horizon < 1:
             raise ValueError("horizon must be >= 1")
         alive = np.stack(
             [self.mask_source.next_mask() for _ in range(horizon)])
         self.steps_sampled += horizon
-        keys = [self._key(a) for a in alive]
+        if self.policy is not None:
+            return np.stack([self._policy_weights(a) for a in alive]), alive
+        keys = [(self.coding.decoding, float(self.coding.straggler_p),
+                 a.tobytes()) for a in alive]
         # This horizon's rows are gathered locally: eviction while
         # inserting novel decodes must not drop a row still needed.
         w_by_key = {k: self._cache[k] for k in keys if k in self._cache}

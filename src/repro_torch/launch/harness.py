@@ -1,18 +1,20 @@
 """The paper's Monte-Carlo and spectral harness on the port.
 
-    python -m repro_torch.launch.harness \
-        [--section decoding_error,adversarial,zoo,convergence] \
-        [--fast|--full] [--device cpu]
+    python -m repro_torch.launch.harness [--fast|--full] [--device cpu] \
+        [--section NAME,...]
 
 The port's counterpart of the reference's paper-figure functions, with
-their paper-claim asserts:
+their paper-claim asserts, one section each (every section by default):
 
 - ``decoding_error``: Figure 3 / Section VIII-B, ``regime1`` (m = 24,
   d = 3, random 3-regular graph) and ``regime2`` (m = 6552, d = 6, the
   LPS X^{5,13} Ramanujan graph, n = 2184), each one ``sweep_campaign``
-  (copies of ``benchmarks/decoding_error.py:regime1/regime2``). Asserts
+  (copies of ``benchmarks/decoding_error.py:regime1/regime2``), and the
+  compression grid (``compression_campaign`` at the regime-1 scheme,
+  trials = 200, dim = 512; the section's ``compression`` rows). Asserts
   that optimal decoding beats the fixed-decoding lower bound at p <= 0.1
-  in regime 1.
+  in regime 1, that int8 stays within 1.10x the uncompressed error
+  + 1e-3, and that the sign and majority-vote rows lie above it.
 - ``adversarial``: Section V / Table I, worst-case error of the expander
   scheme and the FRC under their attacks (a copy of
   ``benchmarks/adversarial.py:run``). Asserts Cor V.2 (ours <= the
@@ -23,6 +25,13 @@ their paper-claim asserts:
 - ``convergence``: Figures 4/5, coded gradient descent on least squares
   under Bernoulli stragglers (a copy of ``benchmarks/convergence.py:run``)
   with its asserts.
+- ``bounds``: Props A.1/A.3 and Table III, Monte-Carlo errors against the
+  information-theoretic lower bounds, the FRC meeting Prop A.3 (a copy
+  of ``benchmarks/bounds.py:run``, m = 48, d = 4) with its asserts.
+- ``expansion``: the Theorem IV.1 ablation, error against spectral
+  expansion at equal d over six graphs in one campaign with each row's
+  top-3 covariance spectrum (a copy of
+  ``benchmarks/expansion_ablation.py:run``, p = 0.3) with its asserts.
 
 ``--fast`` (the default) runs the reference benchmark's reduced sizes,
 ``--full`` the paper's. The harness runs on the card unless
@@ -41,14 +50,18 @@ import numpy as np
 
 from repro_torch.core import (BernoulliStragglers, CampaignEntry,
                               LeastSquares, adjacency_assignment,
-                              adversarial_mask, expander_assignment,
-                              frc_assignment, gcod, precompute_alphas,
-                              random_regular_graph, scheme_zoo_entries,
-                              sweep_campaign, theory, uncoded_assignment,
-                              uncoded_gd)
+                              adversarial_mask, compression_campaign,
+                              cycle_graph, expander_assignment,
+                              frc_assignment, gcod, graph_assignment,
+                              hypercube_graph, monte_carlo_error,
+                              precompute_alphas, random_regular_graph,
+                              scheme_zoo_entries, sweep_campaign, theory,
+                              uncoded_assignment, uncoded_gd)
+from repro_torch.core.graphs import lps_like_cayley_expander
 from repro_torch.device import resolve
 
-SECTIONS = ("decoding_error", "adversarial", "zoo", "convergence")
+SECTIONS = ("decoding_error", "adversarial", "zoo", "convergence",
+            "bounds", "expansion")
 P_GRID = (0.05, 0.1, 0.15, 0.2, 0.25, 0.3)
 ZOO_P_GRID = (0.05, 0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.4)
 
@@ -210,6 +223,68 @@ def convergence(m: int = 312, d: int = 6, N: int = 312, k: int = 40,
     return rows
 
 
+def compression(trials: int = 200, dim: int = 512, seed: int = 0,
+                device=None) -> List[Dict]:
+    """The error-vs-p-vs-bits grid at the regime-1 scheme (m = 24,
+    d = 3), as ``benchmarks/decoding_error.py`` runs it."""
+    A = expander_assignment(24, 3, vertex_transitive=False, seed=1)
+    return compression_campaign(A, P_GRID, trials=trials, dim=dim,
+                                seed=seed, device=device)
+
+
+def bounds(m: int = 48, d: int = 4, trials: int = 400,
+           device=None) -> List[Dict]:
+    """Props A.1/A.3, Table III: Monte-Carlo errors beside the lower
+    bounds (a copy of ``benchmarks/bounds.py:run``)."""
+    A = expander_assignment(m, d, vertex_transitive=False, seed=0)
+    F = frc_assignment(m, d)
+    rows = []
+    for p in (0.1, 0.2, 0.3):
+        opt = monte_carlo_error(A, p, trials=trials, method="optimal",
+                                device=device)
+        fix = monte_carlo_error(A, p, trials=trials, method="fixed",
+                                device=device)
+        frc = monte_carlo_error(F, p, trials=trials, method="optimal",
+                                device=device)
+        rows.append({
+            "p": p, "d": d, "trials": trials, "n": A.n,
+            "ours_optimal": opt["mean_error"],
+            "ours_fixed": fix["mean_error"],
+            "frc_optimal": frc["mean_error"],
+            "bound_any": theory.lower_bound_any_decoding(p, d),
+            "bound_fixed": theory.lower_bound_fixed_decoding(p, d),
+        })
+    return rows
+
+
+def expansion(p: float = 0.3, trials: int = 300,
+              device=None) -> List[Dict]:
+    """Theorem IV.1 ablation: graphs of equal d and n but different
+    spectral expansion in one campaign, with each row's top-3
+    covariance spectrum (a copy of
+    ``benchmarks/expansion_ablation.py:run``)."""
+    cases = [
+        ("cycle_n64_d2", cycle_graph(64)),
+        ("hypercube_d4", hypercube_graph(4)),              # n=16, lam=2
+        ("circulant_n16_d4", lps_like_cayley_expander(16, 4, seed=0)),
+        ("random_regular_n16_d4", random_regular_graph(16, 4, seed=0)),
+        ("random_regular_n64_d4", random_regular_graph(64, 4, seed=0)),
+        ("random_regular_n64_d6", random_regular_graph(64, 6, seed=0)),
+    ]
+    entries = [CampaignEntry(graph_assignment(g, name=name), "optimal",
+                             label=name) for name, g in cases]
+    camp = sweep_campaign(entries, (p,), trials=trials, cov=False,
+                          cov_topk=3, device=device)
+    rows = []
+    for name, g in cases:
+        mc = camp[name][0]
+        rows.append({"graph": name, "n": g.n, "d": g.replication_factor,
+                     "lambda": g.spectral_expansion(), "p": p,
+                     "error": mc["mean_error"],
+                     "cov_top3": [round(x, 6) for x in mc["cov_topk"]]})
+    return rows
+
+
 def check_decoding_error(rows: List[Dict]) -> None:
     """Paper claim: optimal decoding is near the p^d/(1-p^d) optimum for
     small p and far below the fixed-coefficient bound (regime 1)."""
@@ -239,12 +314,64 @@ def check_convergence(rows: List[Dict]) -> None:
         raise AssertionError(f"convergence claim failed: {by}")
 
 
-def run_section(name: str, fast: bool, device) -> List[Dict]:
-    """One section at the fast or the paper size, asserts included."""
+def check_compression(rows: List[Dict]) -> None:
+    """int8 noise stays in the straggler-error floor (1.10x + 1e-3); the
+    sign rows, optimally decoded or voted, lie above the uncompressed
+    error."""
+    by_p: Dict[float, Dict[str, float]] = {}
+    for r in rows:
+        by_p.setdefault(r["p"], {})[
+            f"{r['codec']}:{r['decoding']}"] = r["mean_error"]
+    for p, errs in by_p.items():
+        none_e = errs["none:optimal"]
+        if errs["int8:optimal"] > none_e * 1.10 + 1e-3:
+            raise AssertionError(f"int8 error {errs['int8:optimal']:.3e} "
+                                 f"at p={p} exceeds 1.10x uncompressed "
+                                 f"({none_e:.3e}) + 1e-3")
+        for key in ("sign:optimal", "sign:majority_vote"):
+            if errs[key] <= none_e:
+                raise AssertionError(f"{key} error {errs[key]:.3e} at "
+                                     f"p={p} should exceed the "
+                                     f"uncompressed error {none_e:.3e}")
+
+
+def check_bounds(rows: List[Dict]) -> None:
+    """Monte-Carlo errors respect the lower bounds (0.85 slack for the
+    noise; the any-decoding bound only where the expected erasure count
+    is at least 5), and the FRC meets Prop A.3."""
+    slack = 0.85
+    for r in rows:
+        if r["trials"] * r["n"] * r["bound_any"] >= 5:
+            if not r["ours_optimal"] >= r["bound_any"] * slack:
+                raise AssertionError(f"below the any-decoding bound: {r}")
+            if not abs(r["frc_optimal"] - r["bound_any"]) <= \
+                    0.5 * r["bound_any"] + 5e-3:
+                raise AssertionError(f"FRC off Prop A.3: {r}")
+        if not r["ours_fixed"] >= r["bound_fixed"] * slack:
+            raise AssertionError(f"below the fixed-decoding bound: {r}")
+
+
+def check_expansion(rows: List[Dict]) -> None:
+    """The d = 2 cycle is far worse than a d = 4 graph, and d = 6 no
+    worse than d = 4 at the same n."""
+    by = {r["graph"]: r["error"] for r in rows}
+    if not by["cycle_n64_d2"] > 2 * by["random_regular_n64_d4"]:
+        raise AssertionError(f"cycle not worse than d=4: {by}")
+    if not by["random_regular_n64_d6"] <= \
+            by["random_regular_n64_d4"] + 1e-3:
+        raise AssertionError(f"d=6 worse than d=4: {by}")
+
+
+def run_section(name: str, fast: bool, device) -> Dict[str, List[Dict]]:
+    """One section at the fast or the paper size, asserts included:
+    ``{"rows": [...]}``, plus ``"compression"`` for decoding_error."""
+    out = {}
     if name == "decoding_error":
         rows = regime1(trials=50 if fast else 200, device=device)
         rows += regime2(trials=5 if fast else 30, device=device)
         check_decoding_error(rows)
+        out["compression"] = compression(device=device)
+        check_compression(out["compression"])
     elif name == "adversarial":
         rows = adversarial(m=312 if fast else 6552, d=6, device=device)
         check_adversarial(rows)
@@ -256,9 +383,15 @@ def run_section(name: str, fast: bool, device) -> List[Dict]:
                            steps=30 if fast else 50,
                            n_lrs=5 if fast else 8, device=device)
         check_convergence(rows)
+    elif name == "bounds":
+        rows = bounds(trials=150 if fast else 400, device=device)
+        check_bounds(rows)
+    elif name == "expansion":
+        rows = expansion(trials=100 if fast else 300, device=device)
+        check_expansion(rows)
     else:
         raise ValueError(f"unknown section {name!r}; known: {SECTIONS}")
-    return rows
+    return {"rows": rows, **out}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -289,12 +422,14 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                "sections": {}}
     for name in sections:
         t0 = time.perf_counter()
-        rows = run_section(name, fast, device)
+        out = run_section(name, fast, device)
         seconds = time.perf_counter() - t0
-        for r in rows:
-            print(",".join(f"{k}={v:.4g}" if isinstance(v, float) else
-                           f"{k}={v}" for k, v in r.items()), flush=True)
-        summary["sections"][name] = {"seconds": seconds, "rows": rows}
+        for rows in out.values():
+            for r in rows:
+                print(",".join(f"{k}={v:.4g}" if isinstance(v, float)
+                               else f"{k}={v}" for k, v in r.items()),
+                      flush=True)
+        summary["sections"][name] = {"seconds": seconds, **out}
     print(json.dumps(summary), flush=True)
     return summary
 

@@ -18,7 +18,11 @@ weighted by v = A @ w; ``--no-dedup`` materialises the replicated
 per-machine gradients through the ``coded_combine`` kernel (replicated
 path only). ``--compress sign|sign_packed|int8`` quantizes per-row
 gradients with error feedback and combines the payload through the
-``quantized_combine`` / ``packed_sign_combine`` kernels.
+``quantized_combine`` / ``packed_sign_combine`` kernels. ``--scheme``
+takes any scheme of the zoo (``expander``, ``frc``, ``uncoded``,
+``cyclic_mds``, ``bibd``, ``random_regular``), and ``--adaptive
+adaptive|always_optimal|always_fixed`` decides each step's decoder from
+the online straggler estimate (summary key ``adaptive``).
 
 The loop is the reference's host pipeline: batches are built on a worker
 thread one step ahead of the device, straggler masks are sampled and
@@ -30,13 +34,24 @@ the main loop. ``--ckpt-dir`` resumes from the newest intact checkpoint
 a params-only checkpoint warm-starts the parameters at step 0, which is
 how reference parameters enter this driver.
 
+``--chaos <spec>`` takes the masks from heartbeats instead of sampling
+them: a seeded ``dist.chaos.ChaosInjector`` simulates each machine's
+completion time per step (kills, rack failures, delays, flapping; the
+grammar is in ``dist/chaos.py``), a ``dist.failures.HeartbeatMonitor``
+derives the alive mask by deadline (``--heartbeat-deadline``, with
+exponential backoff), and ``--dead-after`` consecutive misses declare a
+machine dead. A death re-draws the code over the survivors
+(``coded_train.elastic_reassign``) and rebuilds the batcher, the step and
+(under ``--compress``) a zero residual over the new row count; the
+parameters and optimizer state go on as they are. The loop runs one
+generation per code. Every detection and re-assignment lands in the
+summary's ``chaos`` object (``--event-log FILE`` writes it as JSON).
+Chaos needs the dedup path, as in the reference.
+
 ``main(argv, cfg)`` takes a ``ModelConfig`` from a caller (it then
-replaces ``--arch`` / ``--full-config``). The flags of later slices are
-accepted and refused with the slice's name: ``--fsdp``,
-``--stream-chunk``, ``--chaos``, ``--dead-after``,
-``--heartbeat-deadline``, ``--event-log``, ``--production-mesh`` (the
-distributed slice) and ``--adaptive`` other than none and the scheme
-zoo (the harness slice).
+replaces ``--arch`` / ``--full-config``). ``--fsdp``, ``--stream-chunk``
+and ``--production-mesh`` are accepted and refused: they wait for the
+distributed slice of the port.
 """
 
 from __future__ import annotations
@@ -54,13 +69,14 @@ from repro_torch import device as _device
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import CodingConfig, ModelConfig, get_config
 from repro_torch.core import compress as compress_mod
+from repro_torch.core import step_weights as sw
 from repro_torch.data.pipeline import CodedBatcher, SyntheticLM
-from repro_torch.dist import coded_train
+from repro_torch.dist import chaos as chaos_mod
+from repro_torch.dist import coded_train, failures
 from repro_torch.models import model as M
 from repro_torch.optim import optimizers as opt_mod
 
 DISTRIBUTED = "waits for the distributed slice of the port"
-HARNESS = "waits for the harness slice of the port"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -107,32 +123,34 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    # flags of later slices: accepted, then refused with the slice name
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="derive the masks from seeded virtual "
+                         "heartbeats: kill:J@S / rack:J,K@S / "
+                         "delay:J@S-E[:X] / flap:J@S-E[:K], separated "
+                         "by ';' (dist/chaos.py); a death re-draws the "
+                         "code over the survivors")
+    ap.add_argument("--dead-after", type=int, default=3,
+                    help="consecutive missed heartbeats before a "
+                         "machine is declared dead (chaos mode)")
+    ap.add_argument("--heartbeat-deadline", type=float, default=0.5,
+                    help="base per-step deadline in virtual seconds "
+                         "(chaos mode; backoff widens it per miss)")
+    ap.add_argument("--event-log", default=None, metavar="FILE",
+                    help="write the summary's chaos object to FILE as "
+                         "JSON")
+    # flags of a later slice: accepted, then refused with its name
     ap.add_argument("--stream-chunk", type=int, default=0)
     ap.add_argument("--fsdp", action="store_true")
     ap.add_argument("--production-mesh", action="store_true")
-    ap.add_argument("--chaos", default=None)
-    ap.add_argument("--dead-after", type=int, default=None)
-    ap.add_argument("--heartbeat-deadline", type=float, default=None)
-    ap.add_argument("--event-log", default=None)
     return ap
 
 
 def _check_args(ap, args) -> None:
     for flag, given in (("--stream-chunk", args.stream_chunk),
                         ("--fsdp", args.fsdp),
-                        ("--production-mesh", args.production_mesh),
-                        ("--chaos", args.chaos),
-                        ("--dead-after", args.dead_after is not None),
-                        ("--heartbeat-deadline",
-                         args.heartbeat_deadline is not None),
-                        ("--event-log", args.event_log)):
+                        ("--production-mesh", args.production_mesh)):
         if given:
             ap.error(f"{flag} {DISTRIBUTED}")
-    if args.adaptive != "none":
-        ap.error(f"--adaptive {args.adaptive} {HARNESS}")
-    if args.scheme not in ("expander", "frc", "uncoded"):
-        ap.error(f"--scheme {args.scheme} {HARNESS}")
     if args.collective == "manual" and args.microbatches != 1:
         ap.error("--microbatches is only supported with "
                  "--collective gspmd")
@@ -140,6 +158,18 @@ def _check_args(ap, args) -> None:
         ap.error("--dedup is only supported with --collective gspmd")
     if args.compress != "none" and args.microbatches != 1:
         ap.error("--compress does not compose with --microbatches")
+    if args.chaos:
+        if args.collective != "gspmd" or args.dedup is False:
+            # a re-assignment changes the machine count; the reference
+            # absorbs it on the dedup path's block axis only
+            ap.error("--chaos requires the default gspmd dedup path")
+        if args.ckpt_dir:
+            ap.error("--chaos does not compose with --ckpt-dir: a "
+                     "checkpoint records no failure history, so a "
+                     "resumed chaos run could not replay the observed "
+                     "masks")
+    elif args.event_log:
+        ap.error("--event-log only applies under --chaos")
 
 
 def _restore(args, params, opt_state, comp_state, compress, runtime):
@@ -199,8 +229,23 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
         scheme=args.scheme, replication=args.replication,
         decoding=args.decoding, straggler_model=args.straggler_model,
         straggler_p=args.straggler_p, seed=args.seed)
-    runtime = coded_train.CodingRuntime(coding, m_workers)
-    assignment = runtime.assignment
+    adaptive = None if args.adaptive == "none" else args.adaptive
+    # Chaos mode pushes each step's mask from the heartbeat monitor
+    # instead of sampling it from the straggler model.
+    injector = monitor = surv = None
+    mask_source = None
+    if args.chaos:
+        schedule = chaos_mod.parse_chaos_spec(args.chaos, m_workers)
+        injector = chaos_mod.ChaosInjector(schedule, m_workers,
+                                           seed=args.seed)
+        monitor = failures.HeartbeatMonitor(
+            m_workers, deadline=args.heartbeat_deadline,
+            dead_after=args.dead_after)
+        surv = failures.SurvivorMap(m_workers)
+        mask_source = sw.ObservedMaskSource(m_workers)
+    runtime = coded_train.CodingRuntime(coding, m_workers,
+                                        mask_source=mask_source,
+                                        adaptive=adaptive, device=dev)
     lookahead = max(1, args.lookahead)
     log_every = args.log_every or max(1, args.steps // 10)
     source = SyntheticLM(cfg.vocab_size, args.seq_len, seed=args.seed)
@@ -209,7 +254,7 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
     optimizer = opt_mod.get_optimizer("adamw", args.lr)
     opt_state = optimizer.init(params)
     compress = None if args.compress == "none" else args.compress
-    comp_rows = assignment.n if dedup else m_workers
+    comp_rows = runtime.assignment.n if dedup else m_workers
     comp_state = (compress_mod.init_state(params, comp_rows)
                   if compress else None)
     codec = compress_mod.get_codec(compress) if compress else None
@@ -221,25 +266,10 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
         start, params, opt_state, comp_state = _restore(
             args, params, opt_state, comp_state, compress, runtime)
 
-    global_batch = assignment.n * args.block_size
-    batcher = CodedBatcher(assignment, shuffle_seed=args.seed)
-    emit = batcher.unique_blocks if dedup else batcher.code_batch
-
-    def host_batch(s):
-        return emit(source.batch(global_batch, s))
-
-    alpha_w = coded_train.alpha_bar_weights(assignment)
-    if args.collective == "manual":
-        train_step = coded_train.make_manual_collective_train_step(
-            cfg, optimizer, alpha_weights=alpha_w, compress=compress)
-    else:
-        train_step = coded_train.make_train_step(
-            cfg, optimizer, n_microbatches=args.microbatches, dedup=dedup,
-            norm_scale=coded_train.dedup_norm_scale(assignment),
-            alpha_weights=alpha_w, compress=compress)
-
     losses = []
     metrics_hist = []          # device scalars, flushed at log points
+    all_events = []            # chaos: serialized FailureEvents
+    reassignments = []         # chaos: one record per re-draw
 
     def flush_metrics():
         # The raw coded loss is scaled by each step's straggler draw;
@@ -257,41 +287,129 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
         print(f"saved step-{step} checkpoint to {args.ckpt_dir}")
 
     pool = ThreadPoolExecutor(max_workers=1)
+    generation = 0
     step = start
+    rebuild_started = None
     t0 = time.time()
     try:
-        lookahead_w = coded_train.LookaheadPrefetcher(
-            runtime, pool, lookahead, args.steps - step)
-        pending = pool.submit(host_batch, step) if step < args.steps \
-            else None
+        # One generation per code: the batcher and the step are built
+        # anew when a re-assignment changes the assignment. Without
+        # --chaos there is one generation.
         while step < args.steps:
-            # re-raises a worker-thread failure here, with its traceback
-            batch_np = pending.result()
-            if step + 1 < args.steps:
-                pending = pool.submit(host_batch, step + 1)
-            batch = {k: torch.from_numpy(v).to(dev)
-                     for k, v in batch_np.items()}
-            w, alive = lookahead_w.next()
-            wv = runtime.block_weights(w) if dedup else w
-            wv = torch.from_numpy(np.asarray(wv, np.float32)).to(dev)
-            with torch.no_grad():
-                if compress:
-                    params, opt_state, comp_state, metrics = train_step(
-                        params, opt_state, comp_state, batch, wv)
+            assignment = runtime.assignment
+            global_batch = assignment.n * args.block_size
+            batcher = CodedBatcher(assignment, shuffle_seed=args.seed)
+            emit = batcher.unique_blocks if dedup else batcher.code_batch
+
+            def host_batch(s, _emit=emit, _gb=global_batch):
+                return _emit(source.batch(_gb, s))
+
+            alpha_w = coded_train.alpha_bar_weights(assignment)
+            if args.collective == "manual":
+                train_step = coded_train.make_manual_collective_train_step(
+                    cfg, optimizer, alpha_weights=alpha_w,
+                    compress=compress)
+            else:
+                train_step = coded_train.make_train_step(
+                    cfg, optimizer, n_microbatches=args.microbatches,
+                    dedup=dedup,
+                    norm_scale=coded_train.dedup_norm_scale(assignment),
+                    alpha_weights=alpha_w, compress=compress)
+            batch_np = host_batch(step)
+            if compress and generation > 0:
+                # the residual's rows follow the re-drawn block axis
+                comp_state = compress_mod.init_state(
+                    params, assignment.n if dedup else runtime.m)
+            if rebuild_started is not None:
+                reassignments[-1]["rebuild_s"] = round(
+                    time.time() - rebuild_started, 3)
+                rebuild_started = None
+            # Observed masks (chaos) decode per step: a mask is not
+            # known before its heartbeats.
+            lookahead_w = None
+            if not args.chaos:
+                lookahead_w = coded_train.LookaheadPrefetcher(
+                    runtime, pool, lookahead, args.steps - step)
+            pending = None
+            reassign_dead = None
+            while step < args.steps:
+                if pending is not None:
+                    # re-raises a worker-thread failure here
+                    batch_np = pending.result()
+                if step + 1 < args.steps:
+                    pending = pool.submit(host_batch, step + 1)
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in batch_np.items()}
+                if args.chaos:
+                    observed = monitor.observe(
+                        step, injector.completion_times(step))
+                    runtime.mask_source.push(surv.localize(observed))
+                    w, alive = runtime.step_weights()
                 else:
-                    params, opt_state, metrics = train_step(
-                        params, opt_state, batch, wv)
-            metrics_hist.append(metrics)
-            if step % log_every == 0 or step == args.steps - 1:
+                    w, alive = lookahead_w.next()
+                wv = runtime.block_weights(w) if dedup else w
+                wv = torch.from_numpy(np.asarray(wv, np.float32)).to(dev)
+                with torch.no_grad():
+                    if compress:
+                        params, opt_state, comp_state, metrics = \
+                            train_step(params, opt_state, comp_state,
+                                       batch, wv)
+                    else:
+                        params, opt_state, metrics = train_step(
+                            params, opt_state, batch, wv)
+                metrics_hist.append(metrics)
+                if step % log_every == 0 or step == args.steps - 1:
+                    flush_metrics()
+                    print(f"step {step:4d} loss {losses[-1]:.4f} "
+                          f"stragglers {int((~alive).sum())}/{runtime.m} "
+                          f"({time.time() - t0:.1f}s)")
+                if args.ckpt_dir and args.ckpt_every and \
+                        (step + 1) % args.ckpt_every == 0 and \
+                        step + 1 < args.steps:
+                    save_ckpt(step + 1)
+                step += 1
+                if args.chaos:
+                    new_events = monitor.drain_events()
+                    for ev in new_events:
+                        all_events.append(ev.to_json())
+                        print(f"step {ev.step}: machine {ev.machine} "
+                              f"{ev.kind} {ev.detail}")
+                    reassign_dead = [ev.machine for ev in new_events
+                                     if ev.kind == "dead"]
+                    if reassign_dead:
+                        break
+            if reassign_dead:
+                # The step that declared the death already decoded
+                # around the machine (a miss zeroes its weight), so no
+                # step is recomputed.
+                if surv.alive_count - len(reassign_dead) < 1:
+                    raise SystemExit(f"step {step}: all machines dead, "
+                                     "cannot re-assign")
                 flush_metrics()
-                print(f"step {step:4d} loss {losses[-1]:.4f} stragglers "
-                      f"{int((~alive).sum())}/{runtime.m} "
-                      f"({time.time() - t0:.1f}s)")
-            if args.ckpt_dir and args.ckpt_every and \
-                    (step + 1) % args.ckpt_every == 0 and \
-                    step + 1 < args.steps:
-                save_ckpt(step + 1)
-            step += 1
+                rebuild_started = time.time()
+                local = [int(np.where(surv.survivors == d)[0][0])
+                         for d in reassign_dead]
+                surv.remove(reassign_dead)
+                generation += 1
+                runtime = coded_train.elastic_reassign(
+                    runtime, local, generation=generation,
+                    mask_source=sw.ObservedMaskSource(surv.alive_count))
+                info = {"step": int(step), "generation": int(generation),
+                        "dead": [int(d) for d in reassign_dead],
+                        "survivors": surv.survivors.tolist(),
+                        "m": surv.alive_count,
+                        "scheme": runtime.coding.scheme,
+                        "replication": int(runtime.coding.replication),
+                        "n_blocks": int(runtime.assignment.n),
+                        "rebuild_s": None}
+                reassignments.append(info)
+                all_events.append(
+                    {"step": int(step), "kind": "reassign", "machine": -1,
+                     "detail": {k: v for k, v in info.items()
+                                if k != "step"}})
+                print(f"step {step}: elastic re-assignment over "
+                      f"m={surv.alive_count} survivors (generation "
+                      f"{generation}, d={runtime.coding.replication})")
         flush_metrics()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -307,6 +425,23 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
         first, last = np.mean(losses[:k]), np.mean(losses[-k:])
         assert last < first, \
             f"loss did not decrease ({first:.3f}->{last:.3f})"
+    chaos_summary = None
+    if args.chaos:
+        detect = monitor.steps_to_detect()
+        chaos_summary = {
+            "spec": args.chaos,
+            "events": all_events,
+            "reassignments": reassignments,
+            "dead_machines": monitor.dead_machines.tolist(),
+            "steps_to_detect": {str(k): int(v) for k, v in detect.items()},
+            "degraded_steps": int(sum(detect.values())),
+            "m_final": surv.alive_count,
+            "generations": generation + 1,
+        }
+        if args.event_log:
+            with open(args.event_log, "w") as f:
+                json.dump(chaos_summary, f, indent=1)
+            print(f"wrote failure-event log to {args.event_log}")
     summary = {"first_loss": losses[0] if losses else None,
                "last_loss": losses[-1] if losses else None,
                "losses": losses, "start_step": start,
@@ -319,10 +454,18 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
                "comm_bytes_per_step": comm_bytes,
                "comm_bytes_per_step_float32": comm_bytes_f32,
                "decode_calls": runtime.decode_calls,
-               "chaos": None,
+               "chaos": chaos_summary,
                "device": (torch.cuda.get_device_name(dev)
                           if dev.type == "cuda" else "cpu"),
                "loop_s": wall}
+    if runtime.policy is not None:
+        est = runtime.estimator.estimate()
+        summary["adaptive"] = {
+            "policy": args.adaptive,
+            "p_hat": est.p_hat,
+            "persistence_hat": est.persistence_hat,
+            "decision_counts": dict(runtime.decision_counts),
+        }
     print(json.dumps(summary))
     return summary
 

@@ -151,4 +151,8 @@ def test_adversarial_masks_identical():
 
 def test_unported_scheme_is_rejected():
     with pytest.raises(ValueError, match="unknown scheme"):
-        tct.make_assignment(TCoding(scheme="bibd", replication=3), 7)
+        tct.make_assignment(TCoding(scheme="lattice", replication=3), 7)
+    # the scheme zoo is ported: bibd builds the reference's design
+    np.testing.assert_array_equal(
+        tct.make_assignment(TCoding(scheme="bibd", replication=3), 7).A,
+        rct.make_assignment(RCoding(scheme="bibd", replication=3), 7).A)

@@ -54,7 +54,8 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.kernels.batched_alpha.ops",
                 "repro_torch.kernels.spectral_matvec.kernel",
                 "repro_torch.kernels.spectral_matvec.ops",
-                "repro_torch.launch.harness"):
+                "repro_torch.launch.harness",
+                "repro_torch.dist.failures", "repro_torch.dist.chaos"):
         assert mod in res["imported"]
     assert res["loaded"] == []
 

@@ -433,8 +433,9 @@ def test_mask_sources_and_debias_match_reference():
     np.testing.assert_array_equal(obs.next_mask(), masks[2])
     with pytest.raises(RuntimeError, match="fast-forwarded"):
         obs.skip(1)
-    with pytest.raises(NotImplementedError, match="harness slice"):
-        TT.CodingRuntime(TCoding(), 4, adaptive="adaptive")
+    adapt = TT.CodingRuntime(TCoding(replication=2), 4,
+                             adaptive="adaptive")
+    assert adapt.policy is not None and adapt.decision_counts == {}
 
 
 # ------------------------------------------------------- checkpoints
@@ -508,17 +509,19 @@ def test_driver_needs_cuda_unless_asked_for_the_cpu():
 
 
 @pytest.mark.parametrize("flag", [["--fsdp"], ["--stream-chunk", "2"],
-                                  ["--chaos", "kill:1@3"],
-                                  ["--dead-after", "2"],
+                                  ["--chaos", "kill:1@3", "--no-dedup"],
+                                  ["--event-log", "events.json"],
                                   ["--production-mesh"],
-                                  ["--adaptive", "adaptive"],
-                                  ["--scheme", "bibd"],
+                                  ["--chaos", "kill:1@3", "--collective",
+                                   "manual"],
+                                  ["--chaos", "kill:1@3", "--ckpt-dir",
+                                   "ckpt"],
                                   ["--collective", "manual", "--dedup"]])
 def test_driver_refuses_later_slices_and_bad_combinations(flag, capsys):
     with pytest.raises(SystemExit):
         ttrain.main(["--device", "cpu", "--steps", "1", *flag])
     err = capsys.readouterr().err
-    assert ("slice" in err) or ("--dedup" in err)
+    assert ("slice" in err) or ("dedup" in err) or ("--chaos" in err)
 
 
 def test_driver_resume_replays_the_tail(tmp_path):

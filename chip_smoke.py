@@ -79,6 +79,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    m = 6552 with ``device="cuda"`` (its debias batch through the torch
    propagator) and ``device="cpu"``: equal scales. Each phase's seconds
    are printed.
+5b. The other families at full width (``families``): deepseek-moe-16b
+   (moe), zamba2-1.2b (hybrid), xlstm-1.3b (ssm), pixtral-12b (vlm) and
+   seamless-m4t-large-v2 (audio). Each trains 6 steps on the dedup path
+   (m = 4, expander d = 2, p = 0.2, 256-token sequences in blocks of 4,
+   lr 1e-4) through the kernels and through the plain versions (loss
+   streams within ``LOSS_RTOL``, exactly one rmsnorm launch per norm of
+   each forward), then serves: moe, hybrid and ssm through the engine
+   with ``--check``, vlm and audio through the static path (prefill
+   with the 1024-position patch prefix or frame source, the encoder
+   output into the cache, decode steps), with exact rmsnorm and
+   decode_attention counts; then teacher-forced decode logits through
+   the kernels against the plain versions (``teacher_forced``'s rules,
+   float32 within ``FAMILY_F32_REL`` of the largest logit).
+   Depth is cut only where memory forces it (``FAMILY_TRAIN``,
+   ``FAMILY_SERVE``); each family's line prints its cuts, ms per step
+   and peak memory. The kernels phase also checks decode_attention at
+   the families' head dims (pixtral's 160 in bf16 and f32, 64, 128 at
+   G = 1) and rmsnorm at d = 1024, 2048 and 5120.
 6. The harness path (``repro_torch.launch.harness``) on the card at the
    paper's Section VIII-B scale (m = 6552, d = 6, the LPS X^{5,13}
    graph, n = 2184): the CLI with ``--full`` (regime 1 and regime 2 and
@@ -123,6 +141,12 @@ TOL = {"bfloat16": dict(atol=3e-2, rtol=3e-2),
 # and a chunk dropped from the merge exceeds this share
 DA_SCALED_TOL = 3e-2
 F32_MODEL_TOL = dict(atol=1e-3, rtol=1e-3)   # f32 logits after 40 layers
+# The other families' float32 logits, kernels vs plain, within this share
+# of the largest logit: the kernels' float32 rounding (2^-24 in a norm)
+# grows with depth and differs by family -- zamba2-1.2b's 38 Mamba2 blocks
+# and 2 shared-attention blocks reached 1.3e-3 at logits of about 5, 30x
+# xlstm-1.3b's 48 blocks (on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
+FAMILY_F32_REL = 1e-3
 BF16_NOISE_FACTOR = 2.0
 # The combines on general inputs: kernel and plain version do the same
 # rounded multiplies and adds in the same row order, so the error is
@@ -450,7 +474,7 @@ def check_width_mismatch(torch, dev):
          "than ceil(d/8) before launching", ok=True)
 
 
-def _run_train(torch, cfg, extra, force):
+def _run_train(torch, cfg, extra, force, args=TRAIN_ARGS):
     """One driver run with every count zeroed just before and read just
     after; ``force`` is the ops modules' ``_FORCE``."""
     import gc
@@ -466,7 +490,7 @@ def _run_train(torch, cfg, extra, force):
     cc_ops.launches = dict.fromkeys(cc_ops.launches, 0)
     t0 = time.perf_counter()
     try:
-        summary = launch_train.main(TRAIN_ARGS + extra, cfg=cfg)
+        summary = launch_train.main(args + extra, cfg=cfg)
     finally:
         rn_ops._FORCE = cc_ops._FORCE = None
     wall = time.perf_counter() - t0
@@ -530,8 +554,8 @@ def _loss_gap(label, s, r, steps):
     return gap
 
 
-def _plain_run(torch, cfg, extra, label):
-    r, counts, wall, _ = _run_train(torch, cfg, extra, "ref")
+def _plain_run(torch, cfg, extra, label, args=TRAIN_ARGS):
+    r, counts, wall, _ = _run_train(torch, cfg, extra, "ref", args)
     if any(counts.values()):
         raise AssertionError(f"train {label}: the plain run launched "
                              f"kernels {counts}")
@@ -801,6 +825,254 @@ def teacher_forced(torch, dev, steps=4):
          max_abs_logit=p32.abs().max().item(),
          greedy_agreement_bf16=(k16.argmax(-1) == p16.argmax(-1))
          .float().mean().item())
+
+
+# ---- the five other families (moe, hybrid, ssm, vlm, audio), full width
+# Training: the dedup path with no compression, m = 4, expander d = 2,
+# Bernoulli p = 0.2, sequences of 256 in blocks of 4 (16 a step), 6 steps
+# of AdamW at lr 1e-4, as the granite runs. Depth is cut where float32
+# parameters, AdamW's two moments, the gradients and the activations
+# autograd keeps would pass ~60 GB (PERF.md section 4 has the reckoning).
+FAMILY_TRAIN_ARGS = ["--steps", "6", "--seq-len", "256", "--block-size",
+                     "4", "--machines", "4", "--scheme", "expander",
+                     "--replication", "2", "--straggler-model",
+                     "bernoulli", "--straggler-p", "0.2", "--lr", "1e-4",
+                     "--log-every", "2", "--seed", "0"]
+FAMILY_TRAIN = (("deepseek-moe-16b", {"n_layers": 2}),
+                ("zamba2-1.2b", {}),
+                ("xlstm-1.3b", {"n_layers": 16}),
+                ("pixtral-12b", {"n_layers": 2}),
+                ("seamless-m4t-large-v2", {"n_layers": 12,
+                                           "n_encoder_layers": 12}))
+# Serving: moe, hybrid and ssm through the engine with --check; vlm and
+# audio through the static path (prefill with the patch prefix or the
+# frame source, the encoder output into the cache, decode steps).
+FAMILY_SERVE = (("deepseek-moe-16b", {"n_layers": 8}),
+                ("zamba2-1.2b", {}),
+                ("xlstm-1.3b", {}),
+                ("pixtral-12b", {"n_layers": 8}),
+                ("seamless-m4t-large-v2", {}))
+ENGINE_ARGS = ["--requests", "8", "--slots", "8", "--prompt-len", "32",
+               "--prompt-spread", "8", "--max-new-tokens", "16",
+               "--max-len", "64", "--replicas", "8", "--scheme",
+               "expander", "--straggler-p", "0.2", "--seed", "0",
+               "--check"]
+STATIC_ARGS = ["--slots", "4", "--prompt-len", "16", "--max-new-tokens",
+               "16", "--max-len", "64", "--seed", "0"]
+
+
+def _norms(cfg, kind):
+    """rmsnorm launches of one pass: "forward" (training batches carry no
+    audio source), "decode" (one step; audio with its cross-attention) or
+    "encode" (the audio encoder)."""
+    at, L = cfg.arch_type, cfg.n_layers
+    if kind == "encode":
+        return 2 * cfg.n_encoder_layers + 1
+    if at == "hybrid":
+        return L + 2 * len(cfg.attn_positions) + 1
+    if at == "ssm":
+        r = cfg.slstm_ratio
+        return 2 * (L // (r + 1)) * (r + 1) + 1
+    if at == "audio" and kind == "decode":
+        return 3 * L + 1
+    return 2 * L + 1
+
+
+def _attentions(cfg):
+    """decode_attention launches of one decode step."""
+    if cfg.arch_type == "hybrid":
+        return len(cfg.attn_positions)
+    return 0 if cfg.arch_type == "ssm" else cfg.n_layers
+
+
+def _cuts(cfg, over):
+    from repro_torch.configs import get_config
+    full = get_config(cfg.name)
+    return {k: [getattr(full, k), v] for k, v in over.items()}
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def family_train(torch, arch, over):
+    """One family's training run through the kernels, then through the
+    plain versions; returns its row and the kernel run's counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import param_shapes
+    import numpy as np
+    cfg = get_config(arch).with_overrides(**over)
+    steps = int(FAMILY_TRAIN_ARGS[FAMILY_TRAIN_ARGS.index("--steps") + 1])
+    label = f"{arch} train"
+    s, counts, wall, peak = _run_train(torch, cfg, [], None,
+                                       FAMILY_TRAIN_ARGS)
+    want = {"rmsnorm": _norms(cfg, "forward") * steps,
+            "decode_attention": 0, "coded_combine": 0,
+            "quantized_combine": 0, "packed_sign_combine": 0}
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    r, rwall = _plain_run(torch, cfg, [], label, FAMILY_TRAIN_ARGS)
+    gap = _loss_gap(label, s, r, steps)
+    n_params = sum(int(np.prod(v)) for v in param_shapes(cfg).values())
+    _free(torch)
+    return dict(n_layers=cfg.n_layers, params=n_params,
+                cuts=_cuts(cfg, over), losses=s["losses"],
+                plain_losses=r["losses"], loss_rel_gap=gap,
+                loss_rtol=LOSS_RTOL, launches=counts,
+                ms_per_step=s["loop_s"] / steps * 1e3,
+                plain_ms_per_step=r["loop_s"] / steps * 1e3,
+                wall_s=wall, plain_wall_s=rwall,
+                peak_mem_gb=peak / 1e9), counts
+
+
+def family_serve(torch, dev, arch, over):
+    """One family's serving run (engine with --check, or the static path)
+    with the counts zeroed just before and read just after, then its
+    teacher-forced logits through the kernels against the plain
+    versions."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.launch import serve as launch_serve
+    cfg = get_config(arch).with_overrides(**over)
+    static = cfg.arch_type in ("vlm", "audio")
+    _free(torch)
+    rn_ops.launches = da_ops.launches = 0
+    t0 = time.perf_counter()
+    out = launch_serve.main(["--arch", arch] +
+                            (STATIC_ARGS if static else ENGINE_ARGS),
+                            cfg=cfg)
+    wall = time.perf_counter() - t0
+    counts = {"rmsnorm": rn_ops.launches,
+              "decode_attention": da_ops.launches}
+    s = out["summary"]
+    if static:
+        args = dict(zip(STATIC_ARGS[::2], STATIC_ARGS[1::2]))
+        steps = int(args["--prompt-len"]) + int(args["--max-new-tokens"])
+        prefill = (_norms(cfg, "encode") + _norms(cfg, "decode")
+                   if cfg.arch_type == "audio" else _norms(cfg, "forward"))
+        encode = _norms(cfg, "encode") if cfg.arch_type == "audio" else 0
+        want_k1 = prefill + encode + steps * _norms(cfg, "decode")
+        if s["new_tokens"] != int(args["--slots"]) * \
+                int(args["--max-new-tokens"]):
+            raise AssertionError(f"{arch} static: {s['new_tokens']} tokens")
+    else:
+        steps = s["pool_steps"]
+        want_k1 = steps * _norms(cfg, "decode")
+        if s["check_passed"] is not True or steps <= 0:
+            raise AssertionError(f"{arch}: engine streams != sequential "
+                                 "reference")
+    want = {"rmsnorm": want_k1,
+            "decode_attention": steps * _attentions(cfg)}
+    if counts != want:
+        raise AssertionError(f"{arch} serve: launch counts {counts} != "
+                             f"{want} for {steps} steps")
+    toks = (out["tokens"] if static else
+            np.concatenate(list(out["results"].values())))
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{arch} serve: token out of the vocabulary")
+    row = dict(path=s["path"], n_layers=cfg.n_layers, cuts=_cuts(cfg, over),
+               steps=steps, tokens_per_s=s["tokens_per_s"],
+               new_tokens=s["new_tokens"], launches=counts, wall_s=wall,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               check_passed=s.get("check_passed"))
+    del out
+    if not static:
+        # where the pool step goes: 8 slots at cache position 32
+        from repro_torch.launch import step_profile as sp
+        _free(torch)
+        prof = sp.main(["--slots", "8", "--max-len", "64", "--pos", "32"],
+                       cfg=cfg)
+        row["step_profile"] = {k: prof[k] for k in (
+            "host_ms_per_step", "graph_ms_per_step", "device_ms_per_step",
+            "device_busy_share", "kernel_families_ms_per_step")}
+    row["teacher_forced"] = family_teacher_forced(torch, dev, cfg)
+    _free(torch)
+    return row, counts
+
+
+def family_teacher_forced(torch, dev, cfg, steps=4, B=8):
+    """``teacher_forced`` for any family: float32 kernels against float32
+    plain versions within ``FAMILY_F32_REL`` of the largest logit; bf16
+    kernels no farther from the float32 logits than
+    ``BF16_NOISE_FACTOR`` times the plain bf16 version. The audio family
+    decodes over an encoded frame source."""
+    import numpy as np
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.models import model as M
+    cfg32 = cfg.with_overrides(dtype="float32")
+    params32 = M.init_params(cfg, seed=7, device=dev)
+    params16 = M.cast_block_weights(params32, cfg)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (steps, B))).to(dev)
+    src = None
+    if cfg.arch_type == "audio":
+        g = torch.Generator(device=dev).manual_seed(7)
+        src = torch.randn(B, cfg.prefix_len, cfg.d_model, generator=g,
+                          device=dev) * 0.02
+
+    def run(c, params, force):
+        rn_ops._FORCE = da_ops._FORCE = force
+        try:
+            with torch.no_grad():
+                cache = M.init_decode_cache(
+                    c, B, 64, device=dev,
+                    src_len=0 if src is None else src.shape[1])
+                if src is not None:
+                    cache["enc"] = M.encode(params, src, c)
+                out = torch.stack([M.decode_step(params, toks[t], cache,
+                                                 c)[0]
+                                   for t in range(steps)])
+        finally:
+            rn_ops._FORCE = da_ops._FORCE = None
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{cfg.name}: non-finite logits")
+        return out
+
+    k32, p32 = run(cfg32, params32, None), run(cfg32, params32, "ref")
+    err32 = (k32 - p32).abs().max().item()
+    top = p32.abs().max().item()
+    if not err32 <= FAMILY_F32_REL * top:
+        raise AssertionError(f"{cfg.name} float32 teacher-forced logits: "
+                             f"kernels vs plain differ by {err32} > "
+                             f"{FAMILY_F32_REL} x max|logit| ({top})")
+    del params32
+    k16, p16 = run(cfg, params16, None), run(cfg, params16, "ref")
+    err_k = (k16 - p32).abs().max().item()
+    err_p = (p16 - p32).abs().max().item()
+    if not err_k <= BF16_NOISE_FACTOR * err_p:
+        raise AssertionError(
+            f"{cfg.name} bf16 teacher-forced logits: kernels are {err_k} "
+            f"from the float32 logits, more than {BF16_NOISE_FACTOR} x the "
+            f"plain bf16 version's {err_p}")
+    return dict(steps=steps, batch=B, f32_kernel_vs_plain=err32,
+                f32_rel_tol=FAMILY_F32_REL, bf16_kernel_vs_f32=err_k,
+                bf16_plain_vs_f32=err_p,
+                bf16_kernel_vs_plain=(k16 - p16).abs().max().item(),
+                max_abs_logit=top,
+                greedy_agreement_bf16=(k16.argmax(-1) == p16.argmax(-1))
+                .float().mean().item())
+
+
+def families(torch, dev):
+    """Every family trained and served on the card; one ``family`` line
+    each. Returns the summed launch counts of the kernel runs."""
+    from repro_torch.configs import get_config
+    totals = {"rmsnorm": 0, "decode_attention": 0}
+    serve = dict(FAMILY_SERVE)
+    for arch, over in FAMILY_TRAIN:
+        train_row, tc = family_train(torch, arch, over)
+        serve_row, sc = family_serve(torch, dev, arch, serve[arch])
+        for k in totals:
+            totals[k] += tc[k] + sc[k]
+        _say("family", arch=arch, arch_type=get_config(arch).arch_type,
+             train=train_row, serve=serve_row)
+    return totals
 
 
 def _scaled_err(got, want):
@@ -1283,9 +1555,12 @@ def plans(torch, dev):
           for rows, size in ((8, 2), (8, 4), (8192, 2))}
     ba = {f"trials={T} n=2184": ba_k.plan_error(T, 2184, sms)._asdict()
           for T in (30, 1000)}
-    da = {f"B={B} H=32 KVH=8 S={S} Dh=128 bf16":
-          da_k.plan_chunks(B, 32, 8, S, 128, 2, sms)._asdict()
-          for B, S in ((8, 1024), (8, 32768))}
+    da = {f"B={B} H=32 KVH=8 S={S} Dh={Dh} {name}":
+          da_k.plan_chunks(B, 32, 8, S, Dh, size, sms)._asdict()
+          for B, S, Dh, size, name in ((8, 1024, 128, 2, "bf16"),
+                                       (8, 32768, 128, 2, "bf16"),
+                                       (8, 1024, 160, 2, "bf16"),
+                                       (8, 1024, 160, 4, "f32"))}
     da["CTAs at S=1024 (every chunk)"] = \
         da["B=8 H=32 KVH=8 S=1024 Dh=128 bf16"]["groups"] * \
         da["B=8 H=32 KVH=8 S=1024 Dh=128 bf16"]["chunks"]
@@ -1362,6 +1637,22 @@ def main() -> int:
     check_decode_attention(torch, dev, 8, 32, 8, 1024, 128, "float32",
                            rng.integers(1, 1025, 8).tolist(),
                            "B=8 H=32 KVH=8 S=1024 f32")
+    # the other families' shapes: pixtral-12b's head dim 160 (G = 4, the
+    # tensor cores in bf16, the CUDA cores in f32), zamba2-1.2b's and
+    # seamless-m4t's 64 and deepseek-moe-16b's 128 at G = 1
+    for dtype in ("bfloat16", "float32"):
+        check_decode_attention(torch, dev, 8, 32, 8, 1024, 160, dtype,
+                               rng.integers(1, 1025, 8).tolist(),
+                               f"pixtral B=8 H=32 KVH=8 S=1024 Dh=160 "
+                               f"ragged {dtype}")
+    check_decode_attention(torch, dev, 8, 32, 32, 1024, 64, "bfloat16",
+                           rng.integers(1, 1025, 8).tolist(),
+                           "zamba2 B=8 H=KVH=32 S=1024 Dh=64 ragged")
+    check_decode_attention(torch, dev, 8, 16, 16, 1024, 128, "bfloat16",
+                           rng.integers(1, 1025, 8).tolist(),
+                           "deepseek-moe B=8 H=KVH=16 S=1024 Dh=128 ragged")
+    for d in (1024, 2048, 5120):
+        check_rmsnorm(torch, dev, (8, 1, d), "bfloat16", f"(8,1,{d})")
     check_beyond_length(torch, dev)
     rows.update(combine_checks(torch, dev))
     rows.update(harness_kernel_checks(torch, dev))
@@ -1431,6 +1722,9 @@ def main() -> int:
     t0 = time.perf_counter()
     runtime_at_scale(torch, dev)
     phases["runtime_at_scale"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    family_counts = families(torch, dev)
+    phases["families"] = time.perf_counter() - t0
 
     # ---- the harness path: each step zeroed before, read after
     t0 = time.perf_counter()
@@ -1443,7 +1737,7 @@ def main() -> int:
     plans(torch, dev)
 
     launches = {name: launches.get(name, 0) + train_counts[name]
-                for name in train_counts}
+                + family_counts.get(name, 0) for name in train_counts}
     launches.update(
         fused_error=harness_counts["fused_error"],
         gram_matvec=(harness_counts["gram_matvec"]

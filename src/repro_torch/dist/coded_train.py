@@ -131,11 +131,16 @@ def dedup_norm_scale(assignment: Assignment) -> float:
 def value_and_grad(loss_fn: Callable, params):
     """(loss, grads) of ``loss_fn(params)``; grads is a tree like
     ``params``. The parameters themselves are left untouched: the
-    forward runs on detached views that require grad."""
+    forward runs on detached views that require grad. A parameter the
+    loss does not read (the audio family's encoder on a batch with no
+    ``src``) gets a zero gradient, as ``jax.grad`` gives it."""
     live = T.map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = T.leaves(live)
     with torch.enable_grad():
         loss = loss_fn(live)
-        grads = torch.autograd.grad(loss, T.leaves(live))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
     return loss.detach(), T.like(params, grads)
 
 
@@ -439,6 +444,15 @@ def make_manual_collective_train_step(cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # Serving and the host-side coding runtime
 # ---------------------------------------------------------------------------
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """(params, batch) -> last-position logits (B, V_pad); the batch may
+    carry a vlm ``prefix`` and an audio ``src``."""
+    def step(params, batch):
+        return M.prefill(params, batch["tokens"], cfg,
+                         prefix=batch.get("prefix"), src=batch.get("src"))
+    return step
 
 
 def make_serve_step(cfg: ModelConfig, window: Optional[int] = None):

@@ -34,13 +34,17 @@
 //   2. bf16 with Dh >= 64 (decode_attention_mma_kernel): a warp takes 16
 //      positions of a 64-position tile; S = Q K^T and O += P V run as
 //      m16n8k16 tensor-core products (Q's GT rows padded to 16, K and V
-//      through ldmatrix from XOR-swizzled rows), the online softmax on
-//      S's fragments in fp32 with P rounded to bf16 for the second
-//      product. float32, and bf16 at Dh = 32, run on the CUDA cores
+//      through ldmatrix from XOR-swizzled rows, or, where a row is not a
+//      multiple of eight 16-byte chunks -- Dh = 160 --, from rows padded
+//      to an odd number of chunks), the online softmax on S's fragments
+//      in fp32 with P rounded to bf16 for the second product. float32,
+//      and bf16 at Dh = 32, run on the CUDA cores
 //      (decode_attention_kernel): lane groups of LPK lanes form a
 //      position's dot products with the query rows held in registers,
 //      one lane per position takes the exponentials, and the lane groups
-//      add p * v into their slices of acc.
+//      add p * v into their slices of acc. A lane holds the fewest whole
+//      16-byte vectors for which LPK divides the warp (Dh = 160 in
+//      float32: 20 elements, 8 lanes a position).
 //   3. The warps merge their states through shared memory in warp order.
 //   4. With one active chunk the CTA writes acc / l. Otherwise it writes
 //      its (m, l, acc) to the caller's scratch, takes an integer ticket for
@@ -227,17 +231,39 @@ __device__ __forceinline__ void cta_epilogue(const Params& p, float* ws,
   if (threadIdx.x == 0) p.tickets[bh] = 0;
 }
 
+// Elements a lane holds on the CUDA-core path: the fewest whole 16-byte
+// vectors that cover DH with a warp, such that the lanes of one position
+// divide the warp's 32 (kernel.py lane_elems).
+template <typename T, int DH>
+__host__ __device__ constexpr int lane_elems() {
+  const int vec = 16 / (int)sizeof(T);
+  for (int e = vec; e < DH; e += vec)
+    if (e * 32 >= DH && DH % e == 0 && 32 % (DH / e) == 0) return e;
+  return DH;
+}
+
+// Positions a ring stage holds on the CUDA-core path: K and V rows fill
+// kStageBytes, at most 32 a warp, rounded down to whole rounds of the
+// warp's lane groups, and at least one round.
+template <typename T, int DH>
+__host__ __device__ constexpr int core_tile_positions() {
+  const int kpw = 32 / (DH / lane_elems<T, DH>());
+  int tpw = kStageBytes / (2 * DH * (int)sizeof(T)) / kWarps;
+  tpw = tpw > 32 ? 32 : tpw;
+  tpw = tpw / kpw * kpw;
+  return (tpw < kpw ? kpw : tpw) * kWarps;
+}
+
 template <typename T, int DH, int GT>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const Params p) {
   constexpr int VEC = 16 / sizeof(T);                     // per 16-byte load
-  constexpr int EPL = DH / 32 > VEC ? DH / 32 : VEC;      // elements a lane
+  constexpr int EPL = lane_elems<T, DH>();                // elements a lane
   constexpr int LOADS = EPL / VEC;                        // loads a lane
   constexpr int LPK = DH / EPL;                           // lanes a position
   constexpr int KPW = 32 / LPK;                           // positions at once
   constexpr int ROW = DH * (int)sizeof(T);                // bytes a position
-  constexpr int TP0 = kStageBytes / (2 * ROW);
-  constexpr int TP = TP0 > 4 * 32 ? 4 * 32 : TP0;         // positions a tile
+  constexpr int TP = core_tile_positions<T, DH>();        // positions a tile
   constexpr int TPW = TP / kWarps;                        // ... a warp
   constexpr int CPR = ROW / 16;                           // copies a row
   constexpr int STATE = 2 * GT + GT * DH;                 // floats a state
@@ -443,9 +469,12 @@ __global__ void __launch_bounds__(kThreads)
 // m16n8k16 products per 16 dims (Q's GT rows padded to 16, K rows from
 // shared memory through ldmatrix), the softmax on S's fragments (a row's
 // four lanes share its max), P = exp(S - m) rounded to bf16 as the A
-// operand of O += P V (V through ldmatrix.trans). Rows are stored with
-// their 16-byte chunks XOR-swizzled by row % 8, so ldmatrix reads no
-// bank twice.
+// operand of O += P V (V through ldmatrix.trans). ldmatrix reads one
+// 16-byte chunk from each of 8 consecutive rows, and must read no bank
+// twice: a row of a multiple of 8 chunks is stored with its chunks
+// XOR-swizzled by row % 8; any other row (Dh = 160: 20 chunks, which the
+// swizzle would carry past the row's end) is padded to an odd number of
+// chunks, so that 8 consecutive rows start in 8 different bank groups.
 __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a2,
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -478,17 +507,33 @@ constexpr int kMmaStages = 3;
 constexpr int kMmaTPW = 16;                       // positions a warp a tile
 constexpr int kMmaTP = kWarps * kMmaTPW;          // positions a tile
 
+// Bytes between two rows of a ring stage, and the byte offset of a row's
+// 16-byte chunk, on the tensor-core path (CPR chunks a row).
+template <int CPR>
+__host__ __device__ constexpr int mma_row_stride() {
+  return CPR % 8 == 0 ? CPR * 16 : (CPR | 1) * 16;
+}
+template <int CPR>
+__device__ __forceinline__ int mma_offset(int row, int ch) {
+  if constexpr (CPR % 8 == 0)
+    return row * mma_row_stride<CPR>() + ((ch ^ (row & 7)) * 16);
+  else
+    return row * mma_row_stride<CPR>() + ch * 16;
+}
+
 template <int DH, int GT>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_mma_kernel(const Params p) {
   using T = __nv_bfloat16;
   constexpr int ROW = DH * 2;                     // bytes a position
   constexpr int CPR = ROW / 16;                   // 16-byte chunks a row
+  constexpr int RS = mma_row_stride<CPR>();       // bytes a row in the ring
   constexpr int TP = kMmaTP;
   constexpr int KS = DH / 16;                     // k-steps of S = Q K^T
   constexpr int ND = DH / 8;                      // n-tiles of O
   constexpr int STATE = 2 * GT + GT * DH;
-  static_assert(CPR >= 8 && CPR % 8 == 0, "swizzle needs 8 chunks a row");
+  static_assert(DH % 16 == 0 && CPR >= 8, "k-steps of 16, 8 chunks a row");
+  static_assert(ND % 2 == 0, "O's n-tiles go in pairs");
 
   extern __shared__ __align__(128) unsigned char ring[];
 
@@ -529,7 +574,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   auto fetch = [&](int tile) {
-    unsigned char* st = ring + (size_t)(tile % kMmaStages) * 2 * TP * ROW;
+    unsigned char* st = ring + (size_t)(tile % kMmaStages) * 2 * TP * RS;
     const int base = t0 + tile * TP;
     for (int idx = threadIdx.x; idx < 2 * TP * CPR; idx += kThreads) {
       const int kv = idx / (TP * CPR);
@@ -539,8 +584,8 @@ __global__ void __launch_bounds__(kThreads)
       const T* src = (kv ? vp : kp) +
                      (((size_t)b * p.S + (t < t1 ? t : 0)) * p.KVH + kvh) * DH +
                      ch * 8;
-      cp_async16(st + (size_t)(kv * TP + i) * ROW + ((ch ^ (i & 7)) * 16),
-                 src, t < t1 ? 16 : 0);
+      cp_async16(st + (size_t)kv * TP * RS + mma_offset<CPR>(i, ch), src,
+                 t < t1 ? 16 : 0);
     }
   };
 
@@ -561,8 +606,8 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
 
     const unsigned char* ks_base =
-        ring + (size_t)(tile % kMmaStages) * 2 * TP * ROW;
-    const unsigned char* vs_base = ks_base + TP * ROW;
+        ring + (size_t)(tile % kMmaStages) * 2 * TP * RS;
+    const unsigned char* vs_base = ks_base + TP * RS;
     const int pb = warp * kMmaTPW;
     const int valid = min(TP, t1 - (t0 + tile * TP)) - pb;
     if (valid <= 0) continue;         // warp-uniform
@@ -576,7 +621,7 @@ __global__ void __launch_bounds__(kThreads)
       const int row = pb + (j >> 1) * 8 + rr;
       const int ch = 2 * ks + (j & 1);
       uint32_t kb[4];
-      ldmatrix_x4(kb, ks_base + row * ROW + ((ch ^ (row & 7)) * 16));
+      ldmatrix_x4(kb, ks_base + mma_offset<CPR>(row, ch));
       mma_bf16(sc[0], qa[ks][0], qa[ks][1], kb[0], kb[1]);
       mma_bf16(sc[1], qa[ks][0], qa[ks][1], kb[2], kb[3]);
     }
@@ -618,7 +663,7 @@ __global__ void __launch_bounds__(kThreads)
       const int row = pb + (j & 1) * 8 + rr;
       const int ch = n + (j >> 1);
       uint32_t vb[4];
-      ldmatrix_x4_trans(vb, vs_base + row * ROW + ((ch ^ (row & 7)) * 16));
+      ldmatrix_x4_trans(vb, vs_base + mma_offset<CPR>(row, ch));
       mma_bf16(o[n], pa0, pa2, vb[0], vb[1]);
       mma_bf16(o[n + 1], pa0, pa2, vb[2], vb[3]);
     }
@@ -653,10 +698,13 @@ constexpr bool use_mma() {
 }
 template <typename T, int DH>
 constexpr int tile_positions() {
-  return use_mma<T, DH>() ? kMmaTP
-         : kStageBytes / (2 * DH * (int)sizeof(T)) > 4 * 32
-             ? 4 * 32
-             : kStageBytes / (2 * DH * (int)sizeof(T));
+  return use_mma<T, DH>() ? kMmaTP : core_tile_positions<T, DH>();
+}
+// Bytes a ring stage gives one row.
+template <typename T, int DH>
+constexpr int ring_row_bytes() {
+  return use_mma<T, DH>() ? mma_row_stride<DH * 2 / 16>()
+                          : DH * (int)sizeof(T);
 }
 
 template <typename Kern>
@@ -676,7 +724,7 @@ int set_smem(Kern kern, int smem, bool* configured) {
 
 template <typename T, int DH, int GT>
 int launch_gt(const Params& p, int B, cudaStream_t stream) {
-  constexpr int ROW = DH * (int)sizeof(T);
+  constexpr int ROW = ring_row_bytes<T, DH>();
   constexpr int TP = tile_positions<T, DH>();
   constexpr int STATE = 2 * GT + GT * DH;
   if (p.chunk % TP) return kErrChunk;
@@ -712,6 +760,7 @@ int launch(const Params& p, int B, int Dh, int gt, cudaStream_t stream) {
     case 32: return launch_dh<T, 32>(p, B, gt, stream);
     case 64: return launch_dh<T, 64>(p, B, gt, stream);
     case 128: return launch_dh<T, 128>(p, B, gt, stream);
+    case 160: return launch_dh<T, 160>(p, B, gt, stream);
     case 256: return launch_dh<T, 256>(p, B, gt, stream);
     default: return kErrHeadDim;
   }
@@ -773,7 +822,7 @@ extern "C" const char* decode_attention_error_string(int code) {
     case kErrDtype:
       return "decode_attention: dtype must be float32 or bfloat16";
     case kErrHeadDim:
-      return "decode_attention: head dim must be 32, 64, 128 or 256";
+      return "decode_attention: head dim must be 32, 64, 128, 160 or 256";
     case kErrHeads:
       return "decode_attention: H must be a multiple of KVH";
     case kErrChunk:

@@ -16,7 +16,7 @@ import torch
 
 from .. import _launch, build
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 160, 256)   # 160: pixtral-12b (5120 / 32)
 WARPS = 4                  # kWarps in the source
 STAGE_BYTES = 16_384       # K and V rows of one ring stage (kStageBytes)
 CTAS_PER_SM = 4            # aim: this many CTAs per SM over the whole cache
@@ -42,14 +42,29 @@ class ChunkPlan(NamedTuple):
     state: int     # floats of one chunk's (m, l, acc) state: (2 + Dh) gt
 
 
+def lane_elems(Dh: int, itemsize: int) -> int:
+    """Elements a lane holds on the CUDA-core path: the fewest whole
+    16-byte vectors that cover Dh with a warp, such that the lanes of one
+    position divide the warp's 32 (Dh = 160 in float32: 20, 8 lanes a
+    position)."""
+    vec = 16 // itemsize
+    for e in range(vec, Dh, vec):
+        if e * 32 >= Dh and Dh % e == 0 and 32 % (Dh // e) == 0:
+            return e
+    return Dh
+
+
 def tile_positions(Dh: int, itemsize: int) -> int:
     """Positions per ring stage. bf16 with Dh >= 64 runs on the tensor
     cores, 16 positions a warp; otherwise K and V rows fill STAGE_BYTES,
     at most 32 per warp (one lane per position when the warp takes the
-    exponentials)."""
+    exponentials), rounded down to whole rounds of the warp's lane groups
+    and at least one round."""
     if itemsize == 2 and Dh >= 64:
         return MMA_TILE
-    return min(WARPS * 32, STAGE_BYTES // (2 * Dh * itemsize))
+    per_round = 32 // (Dh // lane_elems(Dh, itemsize))
+    tpw = min(32, STAGE_BYTES // (2 * Dh * itemsize) // WARPS)
+    return max(per_round, tpw // per_round * per_round) * WARPS
 
 
 def plan_chunks(B: int, H: int, KVH: int, S: int, Dh: int, itemsize: int,

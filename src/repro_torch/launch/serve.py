@@ -15,19 +15,31 @@ made on the device from ``--seed``. ``--check`` re-serves the same
 requests through the sequential-batching reference loop and asserts
 bit-identical token streams. The summary's ``pool_steps`` counts every
 pool step this run took (engine and reference loop).
+
+The vlm and audio families need a per-request prefix / source side
+channel the pool does not carry; they take the reference's static-batch
+path (``static_generate``): ``--slots`` prompts with their stub patch
+embeddings (vlm) or frame embeddings (audio), a prefill, the encoder
+output into ``cache["enc"]`` (audio), the prompts replayed through the
+decode step and ``--max-new-tokens`` greedy tokens. As in the
+reference, the prefill's logits are not carried into decoding.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import device as _device
 from repro_torch import serve as S
-from repro_torch.configs import ARCH_IDS, CodingConfig, get_config
+from repro_torch.configs import (ARCH_IDS, CodingConfig, ModelConfig,
+                                 get_config)
+from repro_torch.dist import coded_train
 from repro_torch.models import model as M
 
 
@@ -45,7 +57,68 @@ def _build_requests(args, cfg):
     return reqs
 
 
-def main(argv=None) -> dict:
+@torch.no_grad()
+def static_generate(params, cfg, prompts, *, max_len: int,
+                    max_new_tokens: int, prefix=None, src=None) -> dict:
+    """The static-batch path on the device of ``params``: prompts (B, P)
+    int, prefix (B, Pv, D) for vlm, src (B, Ssrc, D) for audio. Returns
+    the prefill's last-position logits, the last decode logits, the
+    generated tokens (B, max_new_tokens) and the generation seconds."""
+    dev = params["embed"]["table"].device
+    prompts = torch.as_tensor(prompts, device=dev)
+    B, P = prompts.shape
+    batch = {"tokens": prompts, "prefix": prefix, "src": src}
+    prefill = coded_train.make_prefill_step(cfg)(params, batch)
+    cache = M.init_decode_cache(
+        cfg, B, max_len, src_len=src.shape[1] if src is not None else 0,
+        device=dev)
+    if src is not None:
+        cache["enc"] = M.encode(params, src, cfg)
+    step = coded_train.make_serve_step(cfg)
+    logits = None
+    for i in range(P):
+        logits, cache = step(params, prompts[:, i], cache)
+    out = []
+    t0 = time.perf_counter()
+    tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+    for _ in range(max_new_tokens):
+        out.append(tok)
+        logits, cache = step(params, tok, cache)
+        tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+    gen = torch.stack(out, dim=1).cpu().numpy()
+    return {"prefill_logits": prefill, "logits": logits, "tokens": gen,
+            "seconds": time.perf_counter() - t0}
+
+
+def _static_main(args, cfg, dev) -> dict:
+    """The reference's static-batch path (vlm, audio), with its inputs
+    drawn from ``--seed`` in the reference's order."""
+    params = M.cast_block_weights(
+        M.init_params(cfg, seed=args.seed, device=dev), cfg)
+    B = args.slots
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab_size, (B, args.prompt_len))
+    stub = rng.normal(size=(B, cfg.prefix_len, cfg.d_model)) * 0.02
+    stub = torch.from_numpy(stub).to(dev, getattr(torch, cfg.dtype))
+    side = {"prefix": stub} if cfg.arch_type == "vlm" else {"src": stub}
+    out = static_generate(params, cfg, prompts, max_len=args.max_len,
+                          max_new_tokens=args.max_new_tokens, **side)
+    if not torch.isfinite(out["logits"]).all():
+        raise AssertionError("non-finite decode logits")
+    gen = out["tokens"]
+    summary = {"path": "static", "arch": args.arch, "requests": B,
+               "new_tokens": int(gen.size),
+               "tokens_per_s": gen.size / max(out["seconds"], 1e-9),
+               "device": (torch.cuda.get_device_name(dev)
+                          if dev.type == "cuda" else "cpu"),
+               "sample": gen[0][:12].tolist()}
+    print(json.dumps(summary))
+    return {"tokens": gen, "summary": summary}
+
+
+def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
+    """``cfg``, a ``ModelConfig`` from a caller, replaces ``--arch`` and
+    ``--full-config`` (``--arch`` then only names the run)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-4b", choices=ARCH_IDS)
     ap.add_argument("--requests", type=int, default=12)
@@ -82,13 +155,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    if not args.full_config:
-        cfg = cfg.smoke_variant()
-    if cfg.arch_type not in M.SUPPORTED_ARCH_TYPES:
-        ap.error(f"arch_type {cfg.arch_type!r} is not ported yet; "
-                 f"the port serves {M.SUPPORTED_ARCH_TYPES}")
-
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if not args.full_config:
+            cfg = cfg.smoke_variant()
     # Validate the generation budget against the cache capacity before
     # touching the device.
     try:
@@ -98,6 +168,8 @@ def main(argv=None) -> dict:
         ap.error(str(e))
 
     dev = _device.resolve(args.device)
+    if cfg.arch_type in ("vlm", "audio"):
+        return _static_main(args, cfg, dev)
     params = M.cast_block_weights(
         M.init_params(cfg, seed=args.seed, device=dev), cfg)
     reqs = _build_requests(args, cfg)

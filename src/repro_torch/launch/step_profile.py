@@ -4,8 +4,9 @@
         --full-config --slots 8 --max-len 1024 --pos 144
 
 Builds the model (random weights from ``--seed``), a full slot pool whose
-rows all sit at cache position ``--pos``, and times the pool step three
-ways, printing one JSON line:
+rows all sit at cache position ``--pos`` (the KV caches'; a recurrent
+state just runs on), and times the pool step three ways, printing one
+JSON line. The families the engine serves (dense, moe, hybrid, ssm):
 
 - ``host_ms_per_step``: wall time per step over ``--steps`` steps issued
   back to back from Python -- what the engine pays today;
@@ -25,17 +26,20 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from typing import Optional
 
 import torch
 
 from repro_torch import device as _device
 from repro_torch import serve as S
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, ModelConfig, get_config
 from repro_torch.launch import timing
 from repro_torch.models import model as M
 
 
-def main(argv=None) -> dict:
+def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
+    """``cfg``, a ``ModelConfig`` from a caller, replaces ``--arch`` and
+    ``--full-config``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-8b", choices=ARCH_IDS)
     ap.add_argument("--full-config", action="store_true")
@@ -48,9 +52,10 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     dev = _device.resolve("cuda")
-    cfg = get_config(args.arch)
-    if not args.full_config:
-        cfg = cfg.smoke_variant()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if not args.full_config:
+            cfg = cfg.smoke_variant()
     params = M.cast_block_weights(
         M.init_params(cfg, seed=args.seed, device=dev), cfg)
     B = args.slots
@@ -61,12 +66,15 @@ def main(argv=None) -> dict:
     forced = torch.arange(B, dtype=torch.int32, device=dev)
     use = torch.zeros(B, dtype=torch.bool, device=dev)
     alpha = torch.ones(B, dtype=torch.float32, device=dev)
-    pos = cache["layers"]["pos"]
+    # every KV cache's position (none in an xLSTM's recurrent state)
+    pos = [leaf for keys, leaf in S.cache_pool._leaves(cache)
+           if keys[-1] == "pos"]
 
     def one():
         nonlocal tok
         tok, _ = step(params, cache, tok, forced, use, alpha)
-        pos.fill_(args.pos)          # every timed step at the same depth
+        for p in pos:
+            p.fill_(args.pos)        # every timed step at the same depth
 
     host_ms = timing.call_ms(one, iters=args.steps, warmup=3)
 

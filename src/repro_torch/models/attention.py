@@ -3,15 +3,16 @@ the cached single-token decode path backed by the hand-written
 decode-attention kernel.
 
 Port of ``repro.models.attention``. ``attention_forward`` computes what
-the reference's ``blockwise_attention`` computes for self-attention --
-causal plus an optional sliding window ``k > q - window``
-(``_block_mask``), scores
-and softmax in float32, probabilities cast to the input dtype before
-the value product, float32 accumulation -- as one masked softmax over
-the whole key axis: the reference has no Pallas kernel there, and at
-the training lengths used here the (S x S) scores fit. The reference's
-online softmax over 512-key blocks is the same function up to float32
-rounding.
+the reference's ``blockwise_attention`` computes -- causal or
+bidirectional, plus an optional sliding window ``k > q - window``
+(``_block_mask``), scores and softmax in float32, probabilities cast to
+the input dtype before the value product, float32 accumulation -- as one
+masked softmax over the whole key axis: the reference has no Pallas
+kernel there, and at the training and prefill lengths used here the
+(Sq x Sk) scores fit. The reference's online softmax over 512-key blocks
+is the same function up to float32 rounding. Self-attention applies
+RoPE to q and k; cross-attention (``kv=``, the audio decoder over the
+encoder output) takes K and V from the source with no RoPE and no mask.
 
 ``attention_decode`` writes the new K/V in place (the reference blends
 a one-hot and returns a new cache) and returns the cache it was given.
@@ -45,28 +46,36 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
     }
 
 
-def _causal_mask(s: int, window: Optional[int], device) -> torch.Tensor:
-    """(S, S) boolean mask: key k <= query q, and k > q - window."""
-    qp = torch.arange(s, device=device)[:, None]
-    kp = torch.arange(s, device=device)[None, :]
-    mask = kp <= qp
+def _mask(sq: int, sk: int, causal: bool, window: Optional[int],
+          device) -> Optional[torch.Tensor]:
+    """(Sq, Sk) boolean mask, or None for none: key k <= query q when
+    causal, and k > q - window."""
+    if not causal and window is None:
+        return None
+    qp = torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    if causal:
+        mask &= kp <= qp
     if window is not None:
         mask &= kp > qp - window
     return mask
 
 
-def causal_attention(q, k, v, *,
-                     window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, S, H, Dh); k, v: (B, S, KVH, Dh), H % KVH == 0.
-    Returns (B, S, H, Dh) in q.dtype. Query head h reads KV head
+def grouped_attention(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, Sq, H, Dh); k, v: (B, Sk, KVH, Dh), H % KVH == 0.
+    Returns (B, Sq, H, Dh) in q.dtype. Query head h reads KV head
     h // (H // KVH), the reference's (KVH, G) grouping."""
-    B, S, H, Dh = q.shape
+    B, Sq, H, Dh = q.shape
     G = H // k.shape[2]
-    qf = q.float().permute(0, 2, 1, 3)                         # B,H,S,Dh
+    qf = q.float().permute(0, 2, 1, 3)                         # B,H,Sq,Dh
     kf = k.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
     vf = v.repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
-    s = (qf @ kf.transpose(-1, -2)) * Dh ** -0.5               # B,H,S,S
-    s = torch.where(_causal_mask(S, window, q.device), s, NEG_INF)
+    s = (qf @ kf.transpose(-1, -2)) * Dh ** -0.5               # B,H,Sq,Sk
+    mask = _mask(Sq, k.shape[1], causal, window, q.device)
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -76,18 +85,25 @@ def causal_attention(q, k, v, *,
 
 def attention_forward(p, x, *, n_heads: int, n_kv_heads: int,
                       head_dim: int, rope_theta: float,
-                      window: Optional[int] = None):
-    """Full-sequence causal self-attention (training). x: (B, S, D).
-    The reference's bidirectional and cross-attention variants serve
-    the encoder families, which are not ported."""
+                      causal: bool = True,
+                      window: Optional[int] = None,
+                      kv: Optional[torch.Tensor] = None):
+    """Full-sequence attention (training, prefill, the encoder). x:
+    (B, S, D). ``kv``: a cross-attention source (B, Ssrc, D); K and V
+    then come from it, with no RoPE and no mask. ``causal=False`` is the
+    encoder's bidirectional self-attention (RoPE, no causal mask)."""
     B, S, _ = x.shape
+    src = x if kv is None else kv
+    Sk = src.shape[1]
     q = linear(p["wq"], x).reshape(B, S, n_heads, head_dim)
-    k = linear(p["wk"], x).reshape(B, S, n_kv_heads, head_dim)
-    v = linear(p["wv"], x).reshape(B, S, n_kv_heads, head_dim)
-    pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    q = apply_rope(q, pos, rope_theta)
-    k = apply_rope(k, pos, rope_theta)
-    out = causal_attention(q, k, v, window=window)
+    k = linear(p["wk"], src).reshape(B, Sk, n_kv_heads, head_dim)
+    v = linear(p["wv"], src).reshape(B, Sk, n_kv_heads, head_dim)
+    if kv is None:
+        pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+    out = grouped_attention(q, k, v, causal=causal and kv is None,
+                            window=window)
     return linear(p["wo"], out.reshape(B, S, n_heads * head_dim))
 
 

@@ -23,25 +23,109 @@ from repro_torch.configs.base import ModelConfig
 from .model import _check_arch
 
 
+def _attn_shapes(pre: str, lead: tuple, cfg: ModelConfig,
+                 bias: bool) -> dict:
+    D, H, KVH, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {f"{pre}/wq/w": lead + (D, H * Dh),
+           f"{pre}/wk/w": lead + (D, KVH * Dh),
+           f"{pre}/wv/w": lead + (D, KVH * Dh),
+           f"{pre}/wo/w": lead + (H * Dh, D)}
+    if bias:
+        out.update({f"{pre}/wq/b": lead + (H * Dh,),
+                    f"{pre}/wk/b": lead + (KVH * Dh,),
+                    f"{pre}/wv/b": lead + (KVH * Dh,)})
+    return out
+
+
+def _mlp_shapes(pre: str, lead: tuple, d: int, f: int) -> dict:
+    return {f"{pre}/wi_gate/w": lead + (d, f), f"{pre}/wi_up/w": lead + (d, f),
+            f"{pre}/wo/w": lead + (f, d)}
+
+
+def _norms(pre: str, lead: tuple, d: int, *names) -> dict:
+    return {f"{pre}/{n}/scale": lead + (d,) for n in names}
+
+
+def _attn_block_shapes(pre: str, lead: tuple, cfg: ModelConfig, *,
+                       cross: bool = False) -> dict:
+    D = cfg.d_model
+    out = {**_norms(pre, lead, D, "ln_attn", "ln_mlp"),
+           **_attn_shapes(f"{pre}/attn", lead, cfg, cfg.qkv_bias),
+           **_mlp_shapes(f"{pre}/mlp", lead, D, cfg.d_ff)}
+    if cross:
+        out.update(_norms(pre, lead, D, "ln_cross"))
+        out.update(_attn_shapes(f"{pre}/cross", lead, cfg, False))
+    return out
+
+
+def _moe_block_shapes(lead: tuple, cfg: ModelConfig) -> dict:
+    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    out = {**_norms("blocks", lead, D, "ln_attn", "ln_mlp"),
+           **_attn_shapes("blocks/attn", lead, cfg, cfg.qkv_bias),
+           "blocks/moe/router/w": lead + (D, E),
+           "blocks/moe/w_gate": lead + (E, D, Fe),
+           "blocks/moe/w_up": lead + (E, D, Fe),
+           "blocks/moe/w_down": lead + (E, Fe, D)}
+    if cfg.n_shared_experts:
+        out.update(_mlp_shapes("blocks/moe/shared", lead, D,
+                               Fe * cfg.n_shared_experts))
+    return out
+
+
+def _ssm_block_shapes(lead: tuple, cfg: ModelConfig, head_p: int = 64
+                      ) -> dict:
+    D, N = cfg.d_model, cfg.ssm_state
+    d_inner = cfg.ssm_expand * D
+    H = d_inner // head_p
+    return {**_norms("blocks", lead, D, "ln"),
+            "blocks/ssm/xz_proj/w": lead + (D, 2 * d_inner),
+            "blocks/ssm/bcdt_proj/w": lead + (D, 2 * N + H),
+            "blocks/ssm/conv_w": lead + (cfg.ssm_conv, d_inner),
+            "blocks/ssm/A_log": lead + (H,),
+            "blocks/ssm/dt_bias": lead + (H,),
+            "blocks/ssm/D": lead + (H,),
+            "blocks/ssm/out_proj/w": lead + (d_inner, D)}
+
+
+def _xlstm_shapes(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    n_super = cfg.n_layers // (cfg.slstm_ratio + 1)
+    m, s = (n_super * cfg.slstm_ratio,), (n_super,)
+    out = {**_norms("mlstm_blocks", m, D, "ln", "ln_mlp"),
+           **_mlp_shapes("mlstm_blocks/mlp", m, D, 2 * D),
+           **_norms("slstm_blocks", s, D, "ln", "ln_mlp"),
+           **_mlp_shapes("slstm_blocks/mlp", s, D, 2 * D),
+           "slstm_blocks/slstm/w_in/w": s + (D, 4 * D),
+           "slstm_blocks/slstm/wo/w": s + (D, D)}
+    for name, d_out in (("wq", D), ("wk", D), ("wv", D),
+                        ("w_gates", 2 * cfg.n_heads), ("wo", D)):
+        out[f"mlstm_blocks/mlstm/{name}/w"] = m + (D, d_out)
+    return out
+
+
 def param_shapes(cfg: ModelConfig) -> dict:
-    """"/"-joined key path -> shape of the dense reference tree."""
-    L, D, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab()
-    H, KVH, Dh, F = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
-    shapes = {"embed/table": (V, D), "final_norm/scale": (D,),
-              "blocks/ln_attn/scale": (L, D), "blocks/ln_mlp/scale": (L, D),
-              "blocks/attn/wq/w": (L, D, H * Dh),
-              "blocks/attn/wk/w": (L, D, KVH * Dh),
-              "blocks/attn/wv/w": (L, D, KVH * Dh),
-              "blocks/attn/wo/w": (L, H * Dh, D),
-              "blocks/mlp/wi_gate/w": (L, D, F),
-              "blocks/mlp/wi_up/w": (L, D, F),
-              "blocks/mlp/wo/w": (L, F, D)}
-    if cfg.qkv_bias:
-        shapes.update({"blocks/attn/wq/b": (L, H * Dh),
-                       "blocks/attn/wk/b": (L, KVH * Dh),
-                       "blocks/attn/wv/b": (L, KVH * Dh)})
+    """"/"-joined key path -> shape of the reference's parameter tree
+    for ``cfg``'s family."""
+    _check_arch(cfg)
+    D, V, L = cfg.d_model, cfg.padded_vocab(), (cfg.n_layers,)
+    shapes = {"embed/table": (V, D), "final_norm/scale": (D,)}
     if not cfg.tie_embeddings:
         shapes["lm_head/w"] = (D, V)
+    at = cfg.arch_type
+    if at in ("dense", "vlm"):
+        shapes.update(_attn_block_shapes("blocks", L, cfg))
+    elif at == "moe":
+        shapes.update(_moe_block_shapes(L, cfg))
+    elif at == "hybrid":
+        shapes.update(_ssm_block_shapes(L, cfg))
+        shapes.update(_attn_block_shapes("shared_attn", (), cfg))
+    elif at == "ssm":
+        shapes.update(_xlstm_shapes(cfg))
+    else:   # audio
+        shapes.update(_attn_block_shapes("encoder",
+                                         (cfg.n_encoder_layers,), cfg))
+        shapes["enc_norm/scale"] = (D,)
+        shapes.update(_attn_block_shapes("blocks", L, cfg, cross=True))
     return shapes
 
 
@@ -58,14 +142,13 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
     """Reference parameters (nested NumPy dicts or an ``.npz`` path) ->
     the port's parameter tree on ``device`` (default: the GPU). Raises
     on a missing, unexpected or mis-shaped leaf."""
-    _check_arch(cfg)
     device = _device.resolve(device)
     flat = (read_npz(tree) if isinstance(tree, (str, os.PathLike))
             else dict(zip(*T.flatten(tree))))
     want = param_shapes(cfg)
     if set(flat) != set(want):
         raise ValueError(
-            f"parameter keys differ from {cfg.name}'s dense tree: missing "
+            f"parameter keys differ from {cfg.name}'s tree: missing "
             f"{sorted(set(want) - set(flat))}, unexpected "
             f"{sorted(set(flat) - set(want))}")
     out = {}

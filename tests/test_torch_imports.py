@@ -55,7 +55,9 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.kernels.spectral_matvec.kernel",
                 "repro_torch.kernels.spectral_matvec.ops",
                 "repro_torch.launch.harness",
-                "repro_torch.dist.failures", "repro_torch.dist.chaos"):
+                "repro_torch.dist.failures", "repro_torch.dist.chaos",
+                "repro_torch.models.moe", "repro_torch.models.ssm",
+                "repro_torch.models.xlstm"):
         assert mod in res["imported"]
     assert res["loaded"] == []
 

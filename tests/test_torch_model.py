@@ -1,4 +1,5 @@
-"""The port's dense decode path against ``repro.models.model``.
+"""The port's dense decode path against ``repro.models.model`` (the other
+families: tests/test_torch_families*.py).
 
 The JAX package's parameters cross into the port through NumPy
 (``repro_torch.models.convert.params_from_numpy``); both packages then
@@ -87,18 +88,40 @@ def test_decode_step_logits_match_jax_bfloat16():
         np.testing.assert_allclose(tl, rl, **BF16_TOL)
 
 
-def test_cast_block_weights_leaves_logits_bit_identical():
+@pytest.mark.parametrize("arch,over", [
+    ("granite-3-8b", {"n_kv_heads": 2}),
+    ("deepseek-moe-16b", {}),
+    ("zamba2-1.2b", {}),
+    ("xlstm-1.3b", {"n_layers": 4, "slstm_ratio": 1}),
+    ("pixtral-12b", {}),
+    ("seamless-m4t-large-v2", {}),
+])
+def test_cast_block_weights_leaves_logits_bit_identical(arch, over):
     """Casting block weights once (the engine's choice) is the per-call
-    ``w.to(x.dtype)`` of ``linear`` done up front: same bits."""
-    _, tcfg = _cfgs("granite-3-8b", n_kv_heads=2, dtype="bfloat16")
+    ``w.to(x.dtype)`` of ``linear`` (and of the expert weights and the
+    SSM's conv filter) done up front: same bits, in every family. The
+    SSM's A_log, dt_bias and D stay float32, as the reference reads
+    them."""
+    _, tcfg = _cfgs(arch, dtype="bfloat16", **over)
     params = TM.init_params(tcfg, seed=3, device="cpu")
     cast = TM.cast_block_weights(params, tcfg)
-    assert cast["blocks"]["attn"]["wq"]["w"].dtype == torch.bfloat16
-    assert cast["blocks"]["ln_attn"]["scale"].dtype == torch.float32
-    assert cast["lm_head"]["w"].dtype == torch.float32
+    flat = dict(_leaves(cast))
+    for key, leaf in flat.items():
+        parts = key.split("/")
+        f32 = (parts[0] in ("embed", "final_norm", "lm_head", "enc_norm")
+               or parts[-2].startswith("ln")
+               or parts[-1] in ("A_log", "dt_bias", "D"))
+        assert leaf.dtype == (torch.float32 if f32 else torch.bfloat16), key
     tok = torch.tensor([1, 5, 7])
-    c1 = TM.init_decode_cache(tcfg, 3, 8, device="cpu")
-    c2 = TM.init_decode_cache(tcfg, 3, 8, device="cpu")
+    src_len = 8 if tcfg.arch_type == "audio" else 0
+    c1 = TM.init_decode_cache(tcfg, 3, 8, src_len=src_len, device="cpu")
+    c2 = TM.init_decode_cache(tcfg, 3, 8, src_len=src_len, device="cpu")
+    if src_len:
+        src = torch.randn(3, src_len, tcfg.d_model,
+                          generator=torch.Generator().manual_seed(0)) * 0.02
+        c1["enc"] = TM.encode(params, src, tcfg)
+        c2["enc"] = TM.encode(cast, src, tcfg)
+        assert torch.equal(c1["enc"], c2["enc"])
     for _ in range(3):
         l1, c1 = TM.decode_step(params, tok, c1, tcfg)
         l2, c2 = TM.decode_step(cast, tok, c2, tcfg)
@@ -138,11 +161,6 @@ def test_port_init_params_matches_reference_layout():
     for k in ref:
         assert tuple(port[k].shape) == ref[k].shape, k
         assert str(port[k].dtype).split(".")[-1] == str(ref[k].dtype), k
-
-
-def test_unported_family_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TM.init_params(tget("zamba2-1.2b").smoke_variant(), device="cpu")
 
 
 def _leaves(tree, prefix=""):

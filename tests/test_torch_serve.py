@@ -173,12 +173,6 @@ def test_cache_pool_reset_zeroes_only_masked_slots(dense):
         assert torch.equal(new[:, 1:], old[:, 1:])
 
 
-def test_engine_rejects_unported_families():
-    cfg = tget("zamba2-1.2b").smoke_variant()
-    with pytest.raises(NotImplementedError):
-        TS.CachePool(cfg, 2, 8, device="cpu")
-
-
 def test_launch_serve_cli_on_cpu():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run(

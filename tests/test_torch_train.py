@@ -154,12 +154,6 @@ def test_forward_logits_match_reference_and_mask_padded_vocab():
         float(RM.train_loss(tree, batch, rcfg)), rtol=1e-5)
 
 
-def test_non_dense_families_are_rejected():
-    cfg = tget("zamba2-1.2b").smoke_variant()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TM.forward_hidden({}, torch.zeros(1, 2, dtype=torch.long), cfg)
-
-
 # ------------------------------------------------------------ optimizers
 
 def _grad_stream(params, steps, seed=0):

@@ -117,7 +117,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    per lockstep Lanczos iteration, no plain-version run. Then the
    regime-2 campaign's wall time split into host decode, the K6 stage,
    and the covariance stage with the device time the profiler saw.
-7. The launch plans of the four redesigned kernels at the path shapes
+7. The benchmark suite (``repro_torch.benchmarks.run --fast``) into a
+   temporary directory: every kernel at its path shapes against its
+   plain version, a library call and its bound; the serving engine's
+   tokens/s and TTFT (granite-3-8b full config, three runs, streams
+   pinned); the training paths' ms per step, comm bytes and peak memory
+   (granite-3-8b at 2 layers) and the chaos row; decoded trials/s and
+   the regime-2 grid at m = 6552. Each report must name the card. Then
+   the dry-run's specs for every arch and shape on both production
+   layouts under both placements (yi-34b's FSDP parameter bytes at most
+   an eighth of its replicated ones), one full dry-run of granite-3-8b
+   ``train_4k`` (it must fit the card), and the argument-bytes
+   cross-check: the dry-run's bytes of the train bench's dedup step
+   within 2 % of what the allocator holds just before its first step.
+8. The launch plans of the four redesigned kernels at the path shapes
    (rmsnorm's and fused_error's threads a row, decode_attention's
    chunks, gram_matvec's strips and clusters; each timed K1 and K6 row
    also carries its plan), a
@@ -1540,6 +1553,110 @@ def step_profile():
          device_ms_per_step=out["device_ms_per_step"])
 
 
+BENCH_FILES = ("BENCH_torch_kernels.json", "BENCH_torch_serve.json",
+               "BENCH_torch_train.json", "BENCH_torch_decoding.json",
+               "BENCH_torch_sweep.json")
+ARG_BYTES_RTOL = 0.02
+
+
+def benchmarks(torch, dev, card):
+    """The port's benchmark suite (``repro_torch.benchmarks.run --fast``)
+    on the card into a temporary directory, every report carrying the
+    card's name; the dry-run's specs for every arch and shape on both
+    production layouts under both placements, and one full dry-run
+    (granite-3-8b ``train_4k``) whose table the suite's roofline section
+    prints; and the train bench's argument-bytes cross-check: the
+    dry-run's bytes for the dedup step against the allocator's just
+    before its first step, within ``ARG_BYTES_RTOL``."""
+    import tempfile
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.configs import ALL_SHAPES, ARCH_IDS
+    from repro_torch.launch import dryrun
+    name = card.rsplit(",", 1)[0].strip()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        specs = {}
+        for arch in ARCH_IDS:
+            for shape in ALL_SHAPES:
+                for mp in (False, True):
+                    for fsdp in (False, True):
+                        r = dryrun.specs_one(arch, shape.name, multi_pod=mp,
+                                             fsdp=fsdp, verbose=False)
+                        specs[(arch, shape.name, mp, fsdp)] = r
+        bad = [k for k, r in specs.items() if r["status"] not in
+               ("ok", "skipped")]
+        yi = [specs[("yi-34b", "train_4k", mp, f)]["param_bytes_per_device"]
+              for mp in (False, True) for f in (False, True)]
+        if bad or not (yi[1] * 8 <= yi[0] and yi[3] * 8 <= yi[2]):
+            raise AssertionError(f"dry-run specs: errors {bad}, yi-34b "
+                                 f"param bytes (repl, fsdp) x 2 {yi}")
+        specs_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dry_dir = os.path.join(tmp, "dryrun")
+        os.makedirs(dry_dir)
+        one = dryrun.dryrun_one("granite-3-8b", "train_4k", multi_pod=False)
+        with open(os.path.join(dry_dir, "granite-3-8b__train_4k__single"
+                               ".json"), "w") as f:
+            json.dump(one, f)
+        dry_s = time.perf_counter() - t0
+        if one["status"] != "ok" or not one["fits_device"]:
+            raise AssertionError(f"granite-3-8b train_4k dry-run: {one}")
+        t0 = time.perf_counter()
+        out = bench_run.main(["--fast", "--out", tmp,
+                              "--dryrun-dir", dry_dir])
+        bench_s = time.perf_counter() - t0
+        reports = {}
+        for fn in BENCH_FILES:
+            with open(os.path.join(tmp, fn)) as f:
+                reports[fn] = json.load(f)
+            if reports[fn]["device"]["name"] != name:
+                raise AssertionError(f"{fn} names {reports[fn]['device']}, "
+                                     f"not the card {name!r}")
+    res = out["results"]
+    eng = res["serve"]["engine"]["coded"]
+    dedup = next(r for r in res["train_step"]["runs"]
+                 if r["path"] == "dedup" and r["compress"] == "none")
+    mem = dedup["memory"]
+    if not mem["argument_bytes_rel_diff"] <= ARG_BYTES_RTOL:
+        raise AssertionError(f"dry-run argument bytes "
+                             f"{mem['argument_bytes_dryrun']} vs allocated "
+                             f"{mem['argument_bytes_measured']}: off by "
+                             f"{mem['argument_bytes_rel_diff']}")
+    shares = {r["name"]: r["bound_share"] for r in res["kernels"]["rows"]
+              if r["bound_share"] is not None}
+    _say("benchmarks", card=card, files=list(BENCH_FILES),
+         tokens_per_s=eng["tokens_per_s"], ttft_p50_ms=eng["ttft_p50_ms"],
+         ttft_p99_ms=eng["ttft_p99_ms"],
+         sim_p99_ms={k: res["serve"]["acceptance"][k]
+                     for k in ("coded_p99_ms", "uncoded_p99_ms")},
+         dedup_ms_per_step=dedup["step_ms"],
+         dedup_peak_gb=mem["peak_bytes"] / 1e9,
+         train_ms_per_step={f"{r['path']}/{r['collective']}/"
+                            f"{r['compress']}/{r['scheme']}": r["step_ms"]
+                            for r in res["train_step"]["runs"]},
+         argument_bytes={k: mem[k] for k in (
+             "argument_bytes_dryrun", "argument_bytes_measured",
+             "argument_bytes_rel_diff")},
+         chaos={k: res["train_step"]["chaos"][k] for k in (
+             "steps_to_detect", "degraded_steps", "m_final", "loss_gap")},
+         trials_per_s=res["decoding"]["batched"]["trials_per_sec"],
+         sweep_s={k: res["sweep"]["regime2_grid"][k]
+                  for k in ("per_point_seconds", "sweep_seconds")},
+         campaign_s=res["sweep"]["campaign"]["campaign_seconds"],
+         bound_share=shares,
+         dryrun={"specs": len(specs), "specs_s": specs_s,
+                 "granite_train_4k_s": dry_s,
+                 "argument_gb_per_device":
+                     one["memory"]["argument_bytes"] / 1e9,
+                 "t_compute_ms": one["roofline"]["t_compute_s"] * 1e3,
+                 "t_memory_ms": one["roofline"]["t_memory_s"] * 1e3,
+                 "t_collective_ms":
+                     one["roofline"]["t_collective_s"] * 1e3,
+                 "useful_flops_ratio":
+                     one["roofline"]["useful_flops_ratio"]},
+         bench_s=bench_s)
+
+
 def plans(torch, dev):
     """The launch plans the redesigned kernels chose at the path shapes:
     K1's and K6's threads a row, K2's chunks, K7's strips, clusters and
@@ -1733,6 +1850,11 @@ def main() -> int:
     t0 = time.perf_counter()
     harness_breakdown(torch, dev)
     phases["harness_breakdown"] = time.perf_counter() - t0
+
+    # ---- the benchmark suite and the dry-run
+    t0 = time.perf_counter()
+    benchmarks(torch, dev, card)
+    phases["benchmarks"] = time.perf_counter() - t0
     _say("phases", seconds=phases)
     plans(torch, dev)
 

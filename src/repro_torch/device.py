@@ -14,7 +14,8 @@ import torch
 
 def resolve(device: Optional[Union[str, torch.device]] = None
             ) -> torch.device:
-    """``None`` means ``"cuda"``; returns a ``torch.device``.
+    """``None`` means ``"cuda"``; returns a ``torch.device``. ``"meta"``
+    is accepted for shape-only runs (``launch.step_analysis``).
 
     Float32 matrix products on the card are pinned to full float32
     (``allow_tf32 = False`` for both matmul and cuDNN), so a float32
@@ -29,6 +30,6 @@ def resolve(device: Optional[Union[str, torch.device]] = None
                 "CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -8,6 +8,10 @@ import ctypes
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Devices whose tensors take the plain version: the CPU, and "meta" (a
+# shape-only run, as ``launch.step_analysis`` makes; no kernel can run
+# on a tensor without data). A CUDA tensor always takes the kernel.
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:

@@ -8,8 +8,9 @@ the batch goes up as float32 and the CUDA kernel reduces it, with the
 debias scale entering as float32 as it does on the TPU. ``_FORCE`` is
 the test hook: ``"ref"`` runs the plain float32 torch version on the
 requested device, ``"kernel"`` insists on the kernel (and raises on the
-CPU). ``launches`` counts kernel launches, ``plain_calls`` runs of the
-plain torch version.
+CPU). ``device="meta"`` (a shape-only run) takes the plain torch
+version and returns its meta result. ``launches`` counts kernel
+launches, ``plain_calls`` runs of the plain torch version.
 """
 
 from __future__ import annotations
@@ -56,6 +57,10 @@ def fused_error(alphas, *, debias: bool = True,
         raise ValueError(f"unknown _FORCE {_FORCE!r}")
     if _FORCE is None and dev.type == "cpu":
         return ref.fused_error_np(a, scale), scale
+    if _FORCE is None and dev.type == "meta":
+        plain_calls += 1
+        return ref.fused_error(torch.empty(a.shape, device=dev), scale), \
+            scale
     # rounded to float32 on the host: half the upload, no cast kernel
     t = torch.from_numpy(a.astype(np.float32)).to(dev)
     if _FORCE == "ref":

@@ -1,5 +1,5 @@
 """Public coded combines: the CUDA kernels for CUDA tensors, the plain
-versions for CPU tensors, and the per-leaf tree forms.
+versions for CPU (or meta) tensors, and the per-leaf tree forms.
 
 Port of ``repro.kernels.coded_combine.ops``. ``_FORCE`` is the test
 hook: ``"ref"`` runs the plain versions on any device, ``"kernel"``
@@ -15,6 +15,7 @@ import math
 import torch
 
 from repro_torch import tree as T
+from repro_torch.kernels._launch import PLAIN_DEVICES
 from . import kernel, ref
 
 _FORCE = None  # test hook: None | "ref" | "kernel"
@@ -23,7 +24,7 @@ launches = {"coded_combine": 0, "quantized_combine": 0,
 
 
 def _use_ref(x: torch.Tensor) -> bool:
-    if _FORCE == "ref" or (_FORCE is None and x.device.type == "cpu"):
+    if _FORCE == "ref" or (_FORCE is None and x.device.type in PLAIN_DEVICES):
         return True
     if _FORCE not in (None, "kernel"):
         raise ValueError(f"unknown _FORCE {_FORCE!r}")

@@ -1,5 +1,5 @@
 """Public decode attention: the CUDA kernel for a CUDA tensor, the plain
-version for a CPU tensor.
+version for a CPU (or meta) tensor.
 
 Forward-only (serving path), as in ``repro.kernels.decode_attention``.
 ``_FORCE`` is the test hook: ``"ref"`` runs the plain version on any
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._launch import PLAIN_DEVICES
 from . import kernel, ref
 
 _FORCE = None  # test hook: None | "ref" | "kernel"
@@ -25,7 +26,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H, KVH = q.shape[1], k.shape[2]
     if H % KVH:
         raise ValueError("H must be a multiple of KVH")
-    if _FORCE == "ref" or (_FORCE is None and q.device.type == "cpu"):
+    if _FORCE == "ref" or (_FORCE is None and q.device.type in PLAIN_DEVICES):
         return ref.decode_attention(q, k, v, lengths)
     if _FORCE not in (None, "kernel"):
         raise ValueError(f"unknown _FORCE {_FORCE!r}")

@@ -1,5 +1,5 @@
 """Public RMSNorm: the CUDA kernel for a CUDA tensor, the plain version
-for a CPU tensor, and a closed-form backward.
+for a CPU (or meta) tensor, and a closed-form backward.
 
 Mirrors ``repro.kernels.rmsnorm.ops``: differentiable through a
 ``torch.autograd.Function`` whose backward is the reference's closed
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._launch import PLAIN_DEVICES
 from . import kernel, ref
 
 _FORCE = None  # test hook: None | "ref" | "kernel"
@@ -21,7 +22,7 @@ launches = 0
 
 def _forward(x, scale, eps):
     global launches
-    if _FORCE == "ref" or (_FORCE is None and x.device.type == "cpu"):
+    if _FORCE == "ref" or (_FORCE is None and x.device.type in PLAIN_DEVICES):
         return ref.rmsnorm(x, scale, eps=eps)
     if _FORCE not in (None, "kernel"):
         raise ValueError(f"unknown _FORCE {_FORCE!r}")

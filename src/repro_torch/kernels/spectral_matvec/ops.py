@@ -10,8 +10,10 @@ so on the CPU every result is bit-identical to ``repro.core`` -- and a
 CPU tensor the plain float32 torch version. ``_FORCE`` is the test
 hook: ``"ref"`` runs the plain torch version on the operand's device,
 ``"kernel"`` insists on the kernel and raises for anything not on the
-card. Results come back as float64 NumPy. ``launches`` counts kernel
-launches and ``plain_calls`` plain torch runs, per entry point.
+card. Results come back as float64 NumPy; a meta operand (a
+shape-only run) takes the plain version and returns its meta result.
+``launches`` counts kernel launches and ``plain_calls`` plain torch
+runs, per entry point.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.kernels._launch import PLAIN_DEVICES
 from . import kernel, ref
 
 _FORCE = None  # test hook: None | "ref" | "kernel"
@@ -57,9 +60,12 @@ def _run(entry, fn, x, args, oracle):
     xt = torch.as_tensor(x)
     rhs = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
            .to(xt.device) for a in args]
-    if _FORCE == "ref" or (_FORCE is None and xt.device.type == "cpu"):
+    if _FORCE == "ref" or (_FORCE is None and
+                           xt.device.type in PLAIN_DEVICES):
         out = getattr(ref, fn)(xt, *rhs)
         plain_calls[entry] += 1
+        if out.device.type == "meta":   # a shape-only run: no values
+            return out
     else:
         out = getattr(kernel, fn)(xt, *rhs)
         launches[entry] += 1

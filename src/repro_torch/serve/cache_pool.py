@@ -5,19 +5,15 @@ The pool is one ``models.model.init_decode_cache`` tree with
 across every leaf; admission zeroes that row in place, so slots are
 reused without allocation or a host round trip. The slot axis is dim 1
 of the per-layer stacked leaves (dim 0 of an unstacked encoder output
-"enc"), the rule of the reference's ``dist.sharding.cache_batch_dim``.
+"enc"), the rule of ``dist.sharding.cache_batch_dim``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.sharding import cache_batch_dim
 from repro_torch.models import model as M
-
-
-def cache_batch_dim(keys) -> int:
-    """Which dim of a decode-cache leaf is the request-slot axis."""
-    return 0 if (keys and keys[0] == "enc") else 1
 
 
 def _leaves(tree, keys=()):

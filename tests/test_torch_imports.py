@@ -57,7 +57,17 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.launch.harness",
                 "repro_torch.dist.failures", "repro_torch.dist.chaos",
                 "repro_torch.models.moe", "repro_torch.models.ssm",
-                "repro_torch.models.xlstm"):
+                "repro_torch.models.xlstm",
+                "repro_torch.launch.roofline", "repro_torch.launch.mesh",
+                "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                "repro_torch.launch.step_analysis",
+                "repro_torch.dist.sharding",
+                "repro_torch.benchmarks.run",
+                "repro_torch.benchmarks.kernel_bench",
+                "repro_torch.benchmarks.serve_bench",
+                "repro_torch.benchmarks.train_step",
+                "repro_torch.benchmarks.decoding",
+                "repro_torch.benchmarks.roofline_report"):
         assert mod in res["imported"]
     assert res["loaded"] == []
 
@@ -82,11 +92,18 @@ def test_port_layout_mirrors_reference():
     each port module below names a reference module (or is new here)."""
     subs = ("configs", "core", "kernels", "models", "dist", "serve",
             "launch", "data", "optim", "checkpoint")
+    # the perf benchmarks' counterparts live in the package: the
+    # reference's top-level benchmarks/ is not a package of src/repro
+    bench = {m.name for m in pkgutil.iter_modules(
+        [os.path.join(PORT, "benchmarks")])}
+    assert bench == {"run", "kernel_bench", "serve_bench", "train_step",
+                     "decoding", "roofline_report"}
     for sub in subs:
         assert os.path.isdir(os.path.join(SRC, "repro", sub)), sub
         assert os.path.isfile(os.path.join(PORT, sub, "__init__.py")), sub
     extra = {"models": {"convert"},
-             "launch": {"step_profile", "timing", "harness"},
+             "launch": {"step_profile", "timing", "harness",
+                        "step_analysis"},
              "kernels": {"build", "_launch"}}
     for sub in ("core", "models", "serve", "dist", "launch", "data",
                 "optim", "checkpoint", "kernels"):

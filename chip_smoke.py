@@ -29,7 +29,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    at odd widths (D = 1, 7, 9, 1,000,003), and on exact inputs (integer
    payloads, power-of-two weights and scales, a dead row), where the
    comparison is bitwise and also against the float64 NumPy oracles;
-   quantized_combine also at the elastic run's 3 rows of D = 104,857,600.
+   quantized_combine also at the elastic run's 3 rows of D = 104,857,600,
+   and all three at the distributed path's rows a rank (2, and a
+   streaming chunk of 1) of D = 104,857,600.
    The harness kernels -- fused_error (K6), gram_matvec with a 1-D v and
    with 8 right-hand sides (K7a) and gram_matvec_batch (K7b) -- at the
    harness path's shapes (trials = 30 and 1000 over n = 2184; the
@@ -79,6 +81,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    m = 6552 with ``device="cuda"`` (its debias batch through the torch
    propagator) and ``device="cpu"``: equal scales. Each phase's seconds
    are printed.
+5a. The distributed runtime (``distributed``), at the training path's
+   width (granite-3-8b, 2 layers, ``DIST_ARGS``: 12 steps, m = 4). On one
+   ``nccl`` rank in process: the manual collective materialising, then
+   streaming with chunks of 1 and 2 machines, then int8 and sign_packed
+   streaming with chunks of 1 (counts zeroed before each run and read
+   after: one combine launch a leaf and chunk, 5 rmsnorm launches a
+   machine's forward); the streaming loss streams within rtol 2e-4 /
+   atol 2e-5 of the materialising one (the reference's reassociation
+   tolerance) and their peak ``max_memory_allocated`` strictly under
+   its; one SGD step's combined gradient, streaming against
+   materialising, within the same tolerance; one AdamW step of the dedup
+   path with ``FSDP`` at one rank and without, bit for bit (deterministic
+   algorithms on). Then two ``gloo`` ranks spawned on the one card
+   (machines [0, 2) and [2, 4), K3 on each, the sum through gloo): their
+   loss stream within the same tolerance of the one-rank run. The
+   ``distributed`` line prints ms a step, peak GB, all_reduce bytes a
+   step and launch counts per run.
 5b. The other families at full width (``families``): deepseek-moe-16b
    (moe), zamba2-1.2b (hybrid), xlstm-1.3b (ssm), pixtral-12b (vlm) and
    seamless-m4t-large-v2 (audio). Each trains 6 steps on the dedup path
@@ -168,6 +187,7 @@ COMBINE_TOL = dict(atol=1e-6, rtol=1e-6)
 PATH_D = (104_857_600, 8_192)
 ODD_D = (1, 7, 9, 1_000_003)
 COMBINE_ROWS = 4
+RANK_ROWS = (2, 1)
 COMBINES = ("coded_combine", "quantized_combine", "packed_sign_combine")
 # Training: loss streams through the kernels vs the plain versions.
 LOSS_RTOL = 1e-2
@@ -465,6 +485,15 @@ def combine_checks(torch, dev):
                   exact=False, n=ELASTIC_ROWS)
     check_combine(torch, dev, "quantized_combine", PATH_D[0], "int8",
                   exact=True, time_it=False, n=ELASTIC_ROWS)
+    # the distributed path's rows a rank: two machines (two ranks at
+    # m = 4) and a streaming chunk of one
+    for n in RANK_ROWS:
+        for kind, dt in (("coded_combine", "float32"),
+                         ("quantized_combine", "int8"),
+                         ("packed_sign_combine", "uint8")):
+            check_combine(torch, dev, kind, PATH_D[0], dt, exact=False, n=n)
+            check_combine(torch, dev, kind, PATH_D[0], dt, exact=True,
+                          time_it=False, n=n)
     check_width_mismatch(torch, dev)
     return rows
 
@@ -1088,6 +1117,287 @@ def families(torch, dev):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# The distributed runtime: one nccl rank in process, two gloo ranks
+# sharing the card
+# ---------------------------------------------------------------------------
+
+# the training runs' arguments: 12 steps, the fewest over which the
+# training CLI's window-mean loss reliably falls at lr 1e-4 (4 did not)
+DIST_ARGS = TRAIN_ARGS
+DIST_STEPS = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+MANUAL = ["--collective", "manual"]
+DIST_RUNS = (("materialising", MANUAL),
+             ("stream chunk 1", MANUAL + ["--stream-chunk", "1"]),
+             ("stream chunk 2", MANUAL + ["--stream-chunk", "2"]),
+             ("int8 stream chunk 1", MANUAL + ["--stream-chunk", "1",
+                                               "--compress", "int8"]),
+             ("sign_packed stream chunk 1",
+              MANUAL + ["--stream-chunk", "1", "--compress",
+                        "sign_packed"]))
+# streaming and two ranks only reassociate the combine: the reference's
+# float32 reassociation tolerance (tests/test_streaming.py:23)
+DIST_RTOL, DIST_ATOL = 2e-4, 2e-5
+
+
+def _dist_counts(torch, cfg, extra, force=None, args=DIST_ARGS):
+    """``_run_train`` on the default group, and the group's traffic."""
+    from repro_torch.dist import process_group as pg
+    before = dict(pg.traffic)
+    s, counts, wall, peak = _run_train(torch, cfg, extra, force, args)
+    return s, counts, wall, peak, {k: pg.traffic[k] - before[k]
+                                   for k in before}
+
+
+def _want_manual(n_leaves, rows, chunk, codec, steps):
+    """Launch counts of the manual collective over ``rows`` machines a
+    rank: one combine a leaf and chunk (a chunk is all the rows when
+    materialising), 5 rmsnorm launches a machine's forward."""
+    combines = n_leaves * (rows // (chunk or rows)) * steps
+    return {"rmsnorm": 5 * rows * steps, "decode_attention": 0,
+            "coded_combine": combines if codec == "none" else 0,
+            "quantized_combine": combines if codec == "int8" else 0,
+            "packed_sign_combine": (combines if codec == "sign_packed"
+                                    else 0)}
+
+
+def _close_streams(label, got, want):
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.allclose(
+            got, want, rtol=DIST_RTOL, atol=DIST_ATOL):
+        raise AssertionError(f"distributed {label}: loss stream {got} != "
+                             f"{want} (rtol {DIST_RTOL}, atol {DIST_ATOL})")
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def _fsdp_one_rank(torch, dev, cfg):
+    """One AdamW step of the dedup path with ``FSDP`` at one rank and
+    without: the parameters and moments bit for bit (deterministic
+    algorithms on, for the embedding's and the loss's backward)."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.configs import CodingConfig
+    from repro_torch.data.pipeline import CodedBatcher, SyntheticLM
+    from repro_torch.dist import coded_train
+    from repro_torch.dist import process_group as pg
+    from repro_torch.dist.fsdp import FSDP
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt_mod
+    A = coded_train.make_assignment(CodingConfig(replication=2), 4)
+    raw = SyntheticLM(cfg.vocab_size, 256, seed=0).batch(A.n * 4, 0)
+    blocks = {k: torch.from_numpy(v).to(dev) for k, v in
+              CodedBatcher(A, shuffle_seed=0).unique_blocks(raw).items()}
+    v = torch.from_numpy((A.A @ np.asarray([1.0, 0.0, 0.7, 2.0]))
+                         .astype(np.float32)).to(dev)
+    workers = pg.init_workers(dev)
+    old = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    outs = []
+    try:
+        for placed in (False, True):
+            _free(torch)
+            params = M.init_params(cfg, seed=1, device=dev)
+            opt = opt_mod.adamw(1e-4)
+            fsdp = FSDP(params, workers) if placed else None
+            step = coded_train.make_train_step(
+                cfg, opt, dedup=True,
+                norm_scale=coded_train.dedup_norm_scale(A),
+                workers=workers, fsdp=fsdp)
+            with torch.no_grad():
+                p, s, met = step(params, opt.init(params), blocks, v)
+            outs.append(([x.cpu() for x in T.leaves(p)],
+                         [x.cpu() for x in T.leaves(s["v"])],
+                         met["loss"].item(), met["grad_norm"].item()))
+            del params, p, s, met
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old
+    (p0, v0, l0, n0), (p1, v1, l1, n1) = outs
+    same = (l0 == l1 and n0 == n1
+            and all(torch.equal(a, b) for a, b in zip(p0 + v0, p1 + v1)))
+    if not same:
+        raise AssertionError("--fsdp at one rank differs from the "
+                             "replicated step")
+    return {"bitwise": True, "loss": l0, "grad_norm": n0}
+
+
+def _stream_params(torch, dev, cfg):
+    """One SGD step of the manual collective, materialising and
+    streaming (chunk 1 and 2), from the same parameters, batch and
+    weights: the combined gradients (the update over lr) within the
+    reassociation tolerance."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.configs import CodingConfig
+    from repro_torch.data.pipeline import CodedBatcher, SyntheticLM
+    from repro_torch.dist import coded_train
+    from repro_torch.models import model as M
+    from repro_torch.optim import optimizers as opt_mod
+    A = coded_train.make_assignment(CodingConfig(replication=2), 4)
+    raw = SyntheticLM(cfg.vocab_size, 256, seed=0).batch(A.n * 4, 0)
+    coded = {k: torch.from_numpy(v).to(dev) for k, v in
+             CodedBatcher(A, shuffle_seed=0).code_batch(raw).items()}
+    w = torch.tensor([1.0, 0.0, 0.7, 2.0], device=dev)
+    lr = 1e-2
+    opt = opt_mod.sgd(lr)
+    _free(torch)
+    params = M.init_params(cfg, seed=1, device=dev)
+    grads = {}
+    for chunk in (None, 1, 2):
+        step = coded_train.make_manual_collective_train_step(
+            cfg, opt, streaming_chunk=chunk)
+        with torch.no_grad():
+            p, _, met = step(params, opt.init(params), coded, w)
+            grads[chunk] = [((a - b) / -lr).cpu()
+                            for a, b in zip(T.leaves(p), T.leaves(params))]
+        del p
+    gap = 0.0
+    for chunk in (1, 2):
+        for a, b in zip(grads[chunk], grads[None]):
+            if not torch.allclose(a, b, rtol=DIST_RTOL, atol=DIST_ATOL):
+                raise AssertionError(f"streaming chunk {chunk}: combined "
+                                     "gradient off the materialising one")
+            gap = max(gap, (a - b).abs().max().item())
+    del params
+    return {"grad_max_abs_gap": gap,
+            "grad_max_abs": max(b.abs().max().item() for b in grads[None])}
+
+
+def _gloo_rank(rank, tmp, argv):
+    """One of two gloo ranks on the card: the training CLI, with its launch
+    counts, peak memory and wall time written to ``tmp``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist import process_group as pg
+    from repro_torch.kernels.coded_combine import ops as cc_ops
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.launch import train as launch_train
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), 2), rank=rank, world_size=2)
+    try:
+        cfg = get_config("granite-3-8b").with_overrides(n_layers=2)
+        rn_ops.launches = da_ops.launches = 0
+        cc_ops.launches = dict.fromkeys(cc_ops.launches, 0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s = launch_train.main(argv, cfg=cfg)
+        wall = time.perf_counter() - t0
+        out = {"summary": s, "wall_s": wall,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "launches": {"rmsnorm": rn_ops.launches,
+                            "decode_attention": da_ops.launches,
+                            **cc_ops.launches},
+               "traffic": dict(pg.traffic)}
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def distributed(torch, dev, card):
+    """The training driver's distributed runtime at granite-3-8b's full
+    width, 2 layers (``DIST_ARGS``): on one nccl rank in process, the
+    manual collective materialising, then streaming with chunks of 1
+    and 2 machines, and the int8 and sign_packed steps streaming (loss
+    streams and one SGD step's combined gradient within the
+    reassociation tolerance, streaming's peak strictly under
+    materialising's, K1/K3/K4/K5 counts a chunk and a leaf), FSDP at one
+    rank bit for bit; then two gloo ranks on the card (two machines a
+    rank, the local combine through K3, the ranks' sum through gloo),
+    their loss stream within the same tolerance of the one-rank run.
+    Returns the kernel runs' summed launch counts."""
+    import tempfile
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import param_shapes
+    cfg = get_config("granite-3-8b").with_overrides(n_layers=2)
+    n_leaves = len(param_shapes(cfg))
+    totals = {}
+    rows = {}
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        for label, extra in DIST_RUNS:
+            s, counts, wall, peak, traffic = _dist_counts(torch, cfg, extra)
+            chunk = (int(extra[extra.index("--stream-chunk") + 1])
+                     if "--stream-chunk" in extra else 0)
+            codec = (extra[extra.index("--compress") + 1]
+                     if "--compress" in extra else "none")
+            want = _want_manual(n_leaves, 4, chunk, codec, DIST_STEPS)
+            if counts != want:
+                raise AssertionError(f"distributed {label}: launch counts "
+                                     f"{counts} != {want}")
+            if s["world_size"] != 1 or s["stream_chunk"] != chunk:
+                raise AssertionError(f"distributed {label}: summary {s}")
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            rows[label] = {"ms_per_step": s["loop_s"] / DIST_STEPS * 1e3,
+                           "peak_gb": peak / 1e9, "losses": s["losses"],
+                           "launches": counts, "wall_s": wall,
+                           "all_reduce_bytes_per_step":
+                               traffic["all_reduce"] / DIST_STEPS}
+        mat = rows["materialising"]
+        for label in ("stream chunk 1", "stream chunk 2"):
+            rows[label]["loss_rel_gap"] = _close_streams(
+                label, rows[label]["losses"], mat["losses"])
+            if not rows[label]["peak_gb"] < mat["peak_gb"]:
+                raise AssertionError(f"distributed {label}: peak "
+                                     f"{rows[label]['peak_gb']} GB not under "
+                                     f"materialising {mat['peak_gb']} GB")
+        grads = _stream_params(torch, dev, cfg)
+        fsdp = _fsdp_one_rank(torch, dev, cfg)
+    finally:
+        dist.destroy_process_group()
+    _free(torch)
+    # two gloo ranks sharing the card: machines [0, 2) and [2, 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_gloo_rank, args=(tmp, DIST_ARGS + MANUAL), nprocs=2,
+                 join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    want = _want_manual(n_leaves, 2, 0, "none", DIST_STEPS)
+    for r, out in enumerate(ranks):
+        if out["launches"] != want:
+            raise AssertionError(f"gloo rank {r}: launch counts "
+                                 f"{out['launches']} != {want}")
+        if out["summary"]["world_size"] != 2:
+            raise AssertionError(f"gloo rank {r}: {out['summary']}")
+    for k, v in ranks[0]["launches"].items():
+        totals[k] = totals.get(k, 0) + v
+    two = ranks[0]["summary"]
+    gap = _close_streams("two gloo ranks", two["losses"], mat["losses"])
+    if ranks[1]["summary"]["losses"] != two["losses"]:
+        raise AssertionError("the two gloo ranks report other losses")
+    rows["two gloo ranks"] = {
+        "ms_per_step": two["loop_s"] / DIST_STEPS * 1e3,
+        "peak_gb": [o["peak_bytes"] / 1e9 for o in ranks],
+        "losses": two["losses"], "loss_rel_gap": gap,
+        "launches": ranks[0]["launches"], "wall_s": spawn_s,
+        "all_reduce_bytes_per_step":
+            two["collective_bytes_per_step"]["all_reduce"],
+        "broadcast_bytes_per_step":
+            two["collective_bytes_per_step"]["broadcast"]}
+    _say("distributed", card=card, arch=cfg.name, n_layers=cfg.n_layers,
+         steps=DIST_STEPS, m=4, rtol=DIST_RTOL, atol=DIST_ATOL, runs=rows,
+         stream_grads=grads, fsdp_one_rank=fsdp)
+    return totals
+
+
 def _scaled_err(got, want):
     """max |got - want| / max(1, max |want|), the K7 comparison."""
     import numpy as np
@@ -1632,7 +1942,8 @@ def benchmarks(torch, dev, card):
          dedup_ms_per_step=dedup["step_ms"],
          dedup_peak_gb=mem["peak_bytes"] / 1e9,
          train_ms_per_step={f"{r['path']}/{r['collective']}/"
-                            f"{r['compress']}/{r['scheme']}": r["step_ms"]
+                            f"{r['compress']}/{r['scheme']}/m{r['m_workers']}"
+                            f"/stream{r['stream_chunk']}": r["step_ms"]
                             for r in res["train_step"]["runs"]},
          argument_bytes={k: mem[k] for k in (
              "argument_bytes_dryrun", "argument_bytes_measured",
@@ -1839,6 +2150,10 @@ def main() -> int:
     t0 = time.perf_counter()
     runtime_at_scale(torch, dev)
     phases["runtime_at_scale"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, v in distributed(torch, dev, card).items():
+        train_counts[name] += v
+    phases["distributed"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     family_counts = families(torch, dev)
     phases["families"] = time.perf_counter() - t0

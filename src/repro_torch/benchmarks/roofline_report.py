@@ -81,19 +81,22 @@ def comm_report(train_report: dict) -> List[dict]:
     if not runs:
         raise AssertionError("train report carries no comm-bytes column")
     out = []
-    print("| scheme | path | compress | comm MB/step | f32 MB/step "
-          "| ratio |")
-    print("|---|---|---|---|---|---|")
+    print("| scheme | path | m | stream chunk | compress | comm MB/step "
+          "| f32 MB/step | ratio |")
+    print("|---|---|---|---|---|---|---|---|")
     for r in runs:
         ratio = r["comm_bytes_per_step"] / r["comm_bytes_per_step_float32"]
         codec = r.get("compress", "none")
         out.append({"scheme": r["scheme"], "path": r["path"],
+                    "m_workers": r.get("m_workers"),
+                    "stream_chunk": r.get("stream_chunk"),
                     "compress": codec,
                     "comm_bytes_per_step": r["comm_bytes_per_step"],
                     "comm_bytes_per_step_float32":
                         r["comm_bytes_per_step_float32"],
                     "ratio": ratio})
-        print(f"| {r['scheme']} | {r['path']} | {codec} "
+        print(f"| {r['scheme']} | {r['path']} | {r.get('m_workers')} "
+              f"| {r.get('stream_chunk')} | {codec} "
               f"| {r['comm_bytes_per_step'] / 1e6:.2f} "
               f"| {r['comm_bytes_per_step_float32'] / 1e6:.2f} "
               f"| {ratio:.3f} |")

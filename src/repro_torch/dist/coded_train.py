@@ -28,13 +28,16 @@ The same four execution models as the reference, on one device:
   per-machine gradients materialised and reduced explicitly by the
   ``coded_combine`` kernel (``coded_allreduce``).
 
-The reference reduces the manual collective inside a ``shard_map``: each
-worker shard combines its local machines, then a psum over the shards.
-Here the group is one shard holding all m machines -- the reference's
-own ``make_test_mesh((1, 1))`` case -- so the local combine is the whole
-reduction and the psum is the identity. Streaming the combine over
-machine chunks, FSDP and the allreduces over a real process group wait
-for the distributed slice.
+Every step runs on a group of W worker ranks (``dist.process_group``;
+W = 1 without one). Each rank takes its block of the coded batch's
+leading machine axis, machines ``[r*m/W, (r+1)*m/W)`` (or of the dedup
+path's block axis, which falls back to all blocks on every rank when n
+is not a multiple of W), and the partial combines are summed across the
+ranks by one float32 ``all_reduce`` -- the reference's ``shard_map`` +
+``psum`` over its worker axes. The manual collective can stream its
+combine over machine chunks (``streaming_chunk``), and ``dist.fsdp``
+shards the parameters and AdamW's moments over the ranks. With W = 1
+every step computes what it computes without a group, bit for bit.
 
 Per-row gradients (the reference's ``jax.vmap(jax.value_and_grad)``)
 are one backward pass per row, written into a preallocated (rows, ...)
@@ -73,6 +76,7 @@ from repro_torch.core.assignment import (Assignment, bibd_assignment,
                                          frc_assignment,
                                          random_matching_assignment,
                                          uncoded_assignment)
+from repro_torch.dist import process_group as pg
 from repro_torch.kernels.coded_combine import ops as cc_ops
 from repro_torch.models import model as M
 from repro_torch.optim import optimizers as opt_mod
@@ -84,13 +88,15 @@ from repro_torch.optim import optimizers as opt_mod
 
 
 def coded_loss_fn(params, coded_batch: Dict[str, torch.Tensor],
-                  w: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                  w: torch.Tensor, cfg: ModelConfig,
+                  norm: Optional[float] = None) -> torch.Tensor:
     """Per-block weighted coded loss; grad == sum_j w_j g_j (Eq. 1).
 
     coded_batch leaves are (m, load, bs, ...) with a ``block_weight``
     (m, load) mask (0 on padding slots of irregular assignments); w is
     the (m,) decoding weights. The machine, load and batch axes flatten
-    into one forward pass.
+    into one forward pass. ``norm`` overrides the normaliser (default:
+    this batch's label count; a rank passes the whole batch's).
     """
     bw = coded_batch["block_weight"]
     m, load = bw.shape
@@ -98,19 +104,22 @@ def coded_loss_fn(params, coded_batch: Dict[str, torch.Tensor],
             for k, v in coded_batch.items() if k != "block_weight"}
     per_seq = M.train_loss(params, flat, cfg, per_example=True)
     per_block = per_seq.reshape(m, load, -1).sum(dim=2)
-    norm = coded_batch["labels"].numel()
+    if norm is None:
+        norm = coded_batch["labels"].numel()
     return (w[:, None] * bw * per_block).sum() / norm
 
 
 def coded_loss_fn_dedup(params, block_batch: Dict[str, torch.Tensor],
                         v: torch.Tensor, cfg: ModelConfig,
-                        norm_scale: float = 1.0) -> torch.Tensor:
+                        norm_scale: float = 1.0,
+                        norm: Optional[float] = None) -> torch.Tensor:
     """Per-unique-block weighted coded loss; grad == sum_j w_j g_j.
 
     block_batch leaves are (n, block_rows, ...) unique blocks
     (``CodedBatcher.unique_blocks``); v is the (n,) per-block weights
     A @ w. ``norm_scale = dedup_norm_scale(assignment)`` makes the loss
-    value equal the replicated path's, not only its gradient.
+    value equal the replicated path's, not only its gradient; ``norm``
+    overrides the whole normaliser, as in ``coded_loss_fn``.
     """
     labels = block_batch["labels"]
     n = labels.shape[0]
@@ -118,7 +127,8 @@ def coded_loss_fn_dedup(params, block_batch: Dict[str, torch.Tensor],
             for k, x in block_batch.items()}
     per_seq = M.train_loss(params, flat, cfg, per_example=True)
     per_block = per_seq.reshape(n, -1).sum(dim=1)
-    norm = labels.numel() * norm_scale
+    if norm is None:
+        norm = labels.numel() * norm_scale
     return (v * per_block).sum() / norm
 
 
@@ -210,12 +220,12 @@ def compress_combine_tree(grads, residual, w, codec, *,
     """Quantize per-row gradients and run the fused combine per leaf.
 
     ``grads`` leaves carry a leading row axis (m machines or n unique
-    blocks), ``residual`` is the matching error-feedback tree and ``w``
-    the (rows,) weights (machine w or block v = A @ w). Per leaf:
-    compress ``g + e`` row-wise, combine the payload through
-    ``quantized_combine`` (or ``packed_sign_combine`` for a packed
-    codec), and keep ``e' = (g + e) - dequant``. Returns (combined
-    float32 tree, new residual tree).
+    blocks, or this rank's block of them), ``residual`` is the matching
+    error-feedback tree and ``w`` the rows' weights (machine w or block
+    v = A @ w). Per leaf: compress ``g + e`` row-wise, combine the
+    payload through ``quantized_combine`` (or ``packed_sign_combine``
+    for a packed codec), and keep ``e' = (g + e) - dequant``. Returns
+    (combined float32 tree, new residual tree).
     """
     q, s, new_r, shapes = _quantize_rows(grads, residual, codec,
                                          error_feedback)
@@ -223,37 +233,123 @@ def compress_combine_tree(grads, residual, w, codec, *,
 
 
 # ---------------------------------------------------------------------------
-# The coded allreduces, over a group of one shard
+# The coded allreduces over the worker group
 # ---------------------------------------------------------------------------
 
 
-def coded_allreduce(grads, w: torch.Tensor):
-    """The paper combine ``sum_j w_j g_j`` as an explicit reduction: the
-    leaves carry the (m, ...) machine axis and the ``coded_combine``
-    kernel reduces it, one launch per leaf."""
-    return cc_ops.coded_combine_tree(grads, w)
+def _sum_over(tree, workers):
+    """One float32 ``all_reduce`` (SUM) per leaf over the worker ranks,
+    in place; the identity with no group or W = 1."""
+    if workers is not None and workers.distributed:
+        for x in T.leaves(tree):
+            workers.all_reduce_(x)
+    return tree
 
 
-def quantized_coded_allreduce(q_tree, scale_tree, w: torch.Tensor):
-    """``coded_allreduce`` carrying the quantized payload: (m, D) int8
-    (or float32) leaves with (m,) scales, reduced by
-    ``quantized_combine``."""
-    return cc_ops.quantized_combine_tree(q_tree, scale_tree, w)
+def coded_allreduce(grads, w: torch.Tensor, workers=None):
+    """The paper combine ``sum_j w_j g_j`` as an explicit collective
+    (the reference's ``_coded_psum_allreduce``): the leaves carry this
+    rank's (m/W, ...) machine rows and ``w`` their weights; the
+    ``coded_combine`` kernel reduces the local rows, one launch per
+    leaf, and one float32 ``all_reduce`` over ``workers`` sums the
+    partial combines. With no group (or W = 1) it is the local combine
+    alone, over all m rows."""
+    return _sum_over(cc_ops.coded_combine_tree(grads, w), workers)
+
+
+def quantized_coded_allreduce(q_tree, scale_tree, w: torch.Tensor,
+                              workers=None):
+    """``coded_allreduce`` carrying the quantized payload: (rows, D) int8
+    (or float32) leaves with (rows,) scales, reduced locally by
+    ``quantized_combine``, so what a machine hands the combine is the
+    codec's wire payload; the partial combines are summed in float32."""
+    return _sum_over(cc_ops.quantized_combine_tree(q_tree, scale_tree, w),
+                     workers)
 
 
 def packed_sign_coded_allreduce(q_tree, scale_tree, w: torch.Tensor,
-                                shapes):
-    """``coded_allreduce`` carrying the 1-bit packed sign payload;
+                                shapes, workers=None):
+    """``coded_allreduce`` carrying the 1-bit packed sign payload (1/32
+    of the float32 bytes), reduced locally by ``packed_sign_combine``;
     ``shapes`` is the tree of combined-output shapes."""
-    return cc_ops.packed_sign_combine_tree(q_tree, scale_tree, w, shapes)
+    return _sum_over(cc_ops.packed_sign_combine_tree(q_tree, scale_tree, w,
+                                                     shapes), workers)
 
 
-def _compressed_allreduce(q_tree, scale_tree, w, codec, shapes):
+def _compressed_allreduce(q_tree, scale_tree, w, codec, shapes,
+                          workers=None):
     """Codec-dispatching combine over flat row payloads."""
     if codec.packed:
-        return packed_sign_coded_allreduce(q_tree, scale_tree, w, shapes)
-    out = quantized_coded_allreduce(q_tree, scale_tree, w)
+        return packed_sign_coded_allreduce(q_tree, scale_tree, w, shapes,
+                                           workers)
+    out = quantized_coded_allreduce(q_tree, scale_tree, w, workers)
     return T.map(lambda x, s: x.reshape(s), out, shapes)
+
+
+def _n_worker_shards(workers) -> int:
+    """W: the worker ranks the machine axis is block-split over."""
+    return 1 if workers is None else workers.size
+
+
+def _to_stream_chunks(leaf, n_shards: int, chunk: int):
+    """(m, ...) -> (T, n_shards * chunk, ...) machine regrouping.
+
+    The machine axis is block-split over the worker ranks (rank s owns
+    machines [s*m/W, (s+1)*m/W)), so a loop over contiguous machine
+    chunks would serialise the ranks. This regrouping makes step t carry
+    ``chunk`` consecutive machines *from every rank*, and the slice's
+    leading axis stays block-contiguous per rank: rank s's machines of
+    step t are slots [s*chunk, (s+1)*chunk).
+    """
+    m = leaf.shape[0]
+    per = m // n_shards
+    x = leaf.reshape((n_shards, per // chunk, chunk) + tuple(leaf.shape[1:]))
+    x = torch.movedim(x, 1, 0)
+    return x.reshape((per // chunk, n_shards * chunk)
+                     + tuple(leaf.shape[1:]))
+
+
+def _from_stream_chunks(leaf, n_shards: int, chunk: int):
+    """(T, n_shards * chunk, ...) -> (m, ...): the exact inverse of
+    ``_to_stream_chunks`` (the residual's way home)."""
+    t = leaf.shape[0]
+    x = leaf.reshape((t, n_shards, chunk) + tuple(leaf.shape[2:]))
+    x = torch.movedim(x, 0, 1)
+    return x.reshape((n_shards * t * chunk,) + tuple(leaf.shape[2:]))
+
+
+def _rank_share(batch, w, workers, *, blocks: bool):
+    """(this rank's rows of ``batch``, of ``w``, whether the rows are
+    split across ranks). Machine rows must split over W; the dedup
+    path's blocks (``blocks``) stay whole on every rank when they do
+    not (``process_group.block_rows_split``)."""
+    size = _n_worker_shards(workers)
+    n = int(w.shape[0])
+    if size == 1 or (blocks and not pg.block_rows_split(n, size)):
+        return batch, w, False
+    if n % size:
+        raise ValueError(f"m = {n} machines do not split over {size} "
+                         "worker ranks")
+    rows = pg.row_block(n, size, workers.rank)
+    # a fresh w: the combine kernels take 16-byte aligned weights
+    return {k: v[rows] for k, v in batch.items()}, w[rows].clone(), True
+
+
+def _cross_rank(grads, workers, split: bool, fsdp):
+    """Finish the cross-rank sum of this rank's partial gradients: under
+    FSDP the reduce-scatter to this rank's shards, else one all_reduce
+    when the rows were split (whole rows need no sum)."""
+    if fsdp is not None:
+        return fsdp.reduce(grads, summed=not split)
+    return _sum_over(grads, workers) if split else grads
+
+
+def _sum_loss(loss, workers, split: bool):
+    if split:
+        loss = loss.reshape(1).clone()
+        workers.all_reduce_(loss)
+        loss = loss.reshape(())
+    return loss
 
 
 def alpha_bar_weights(assignment: Assignment) -> np.ndarray:
@@ -267,16 +363,18 @@ def alpha_bar_weights(assignment: Assignment) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _finisher(optimizer, alpha_weights, dedup: bool):
-    """The shared tail of every step: optimizer update, then metrics
-    (loss, grad_norm, extras, alpha_bar) kept on the device."""
+def _finisher(optimizer, alpha_weights, dedup: bool, fsdp=None):
+    """The shared tail of every step: optimizer update (on this rank's
+    shards under FSDP), then metrics (loss, grad_norm, extras,
+    alpha_bar) kept on the device."""
     aw = (None if alpha_weights is None
           else torch.as_tensor(np.asarray(alpha_weights, np.float32)))
+    norm_of = opt_mod.global_norm if fsdp is None else fsdp.global_norm
 
     def finish(params, opt_state, loss, grads, w, extra=None):
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = opt_mod.apply_updates(params, updates)
-        metrics = {"loss": loss, "grad_norm": opt_mod.global_norm(grads)}
+        metrics = {"loss": loss, "grad_norm": norm_of(grads)}
         if extra:
             metrics.update(extra)
         if dedup:
@@ -293,10 +391,16 @@ def _comm_metric(codec, w, params):
     return {"comm_bytes": torch.tensor(float(comm), device=w.device)}
 
 
+def _full(params, fsdp):
+    """The whole parameters for the forward: gathered under FSDP."""
+    return params if fsdp is None else fsdp.gather(params)
+
+
 def make_train_step(cfg: ModelConfig, optimizer: opt_mod.Optimizer,
                     n_microbatches: int = 1, *, dedup: bool = False,
                     norm_scale: float = 1.0, alpha_weights=None,
-                    compress=None, error_feedback: bool = True):
+                    compress=None, error_feedback: bool = True,
+                    workers=None, fsdp=None):
     """(params, opt_state, coded_batch, w) -> (params, opt_state,
     metrics).
 
@@ -312,11 +416,18 @@ def make_train_step(cfg: ModelConfig, optimizer: opt_mod.Optimizer,
     -> (params, opt_state, comp_state, metrics)``, with per-row
     gradients quantized with error feedback and combined on the payload;
     metrics gain ``comm_bytes``. It does not compose with microbatches.
+
+    ``workers`` (a ``process_group.Workers``) runs the step on W ranks:
+    every rank passes the whole batch and w, computes the gradient of
+    its rows and the ranks sum them; the residual state then holds this
+    rank's rows only. ``fsdp`` (a ``dist.fsdp.FSDP`` over the same
+    workers) takes and returns this rank's shards of the parameters and
+    of the optimizer state.
     """
     nm = int(n_microbatches)
     if nm < 1:
         raise ValueError("n_microbatches must be >= 1")
-    finish = _finisher(optimizer, alpha_weights, dedup)
+    finish = _finisher(optimizer, alpha_weights, dedup, fsdp)
 
     if compress is not None:
         if nm != 1:
@@ -325,24 +436,29 @@ def make_train_step(cfg: ModelConfig, optimizer: opt_mod.Optimizer,
         codec = compress_mod.get_codec(compress)
 
         def compressed_step(params, opt_state, comp_state, batch, w):
+            full = _full(params, fsdp)
+            local, w_l, split = _rank_share(batch, w, workers,
+                                            blocks=dedup)
             if dedup:
                 norm = batch["labels"].numel() * norm_scale
 
                 def block_loss(p, i):
-                    blk = {k: v[i] for k, v in batch.items()}
+                    blk = {k: v[i] for k, v in local.items()}
                     return M.train_loss(p, blk, cfg,
                                         per_example=True).sum() / norm
 
                 losses, grads = _per_row_values_and_grads(
-                    params, batch["labels"].shape[0], block_loss)
+                    full, local["labels"].shape[0], block_loss)
             else:
                 losses, grads = _per_machine_values_and_grads(
-                    params, batch, cfg)
-            loss = (w * losses).sum()
+                    full, local, cfg, norm=batch["labels"].numel())
+            del full
+            loss = _sum_loss((w_l * losses).sum(), workers, split)
             combined, new_resid = compress_combine_tree(
-                grads, comp_state["residual"], w, codec,
+                grads, comp_state["residual"], w_l, codec,
                 error_feedback=error_feedback)
             del grads
+            combined = _cross_rank(combined, workers, split, fsdp)
             params, opt_state, metrics = finish(
                 params, opt_state, loss, combined, w,
                 extra=_comm_metric(codec, w, params))
@@ -350,16 +466,23 @@ def make_train_step(cfg: ModelConfig, optimizer: opt_mod.Optimizer,
 
         return compressed_step
 
-    def loss_fn(p, b, wv):
+    def loss_fn(p, b, wv, norm):
         if dedup:
-            return coded_loss_fn_dedup(p, b, wv, cfg,
-                                       norm_scale=norm_scale)
-        return coded_loss_fn(p, b, wv, cfg)
+            return coded_loss_fn_dedup(p, b, wv, cfg, norm=norm)
+        return coded_loss_fn(p, b, wv, cfg, norm=norm)
+
+    def norm_of(labels: int):
+        # the whole batch's normaliser (every rank's rows), or one
+        # microbatch's share of it
+        return labels * norm_scale if dedup else labels
 
     def step(params, opt_state, batch, w):
+        norm = norm_of(batch["labels"].numel())
+        full = _full(params, fsdp)
+        local, w_l, split = _rank_share(batch, w, workers, blocks=dedup)
         if nm == 1:
-            loss, grads = value_and_grad(lambda p: loss_fn(p, batch, w),
-                                         params)
+            loss, grads = value_and_grad(
+                lambda p: loss_fn(p, local, w_l, norm), full)
         else:
             # microbatch split along the per-block batch axis:
             # replicated leaves are (m, load, bs, ...), dedup (n, bs, ...)
@@ -373,19 +496,23 @@ def make_train_step(cfg: ModelConfig, optimizer: opt_mod.Optimizer,
                 return leaf.narrow(bax, i * (bs_ // nm), bs_ // nm)
 
             grads = T.map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+                p.shape, dtype=torch.float32, device=p.device), full)
             loss = torch.zeros((), dtype=torch.float32, device=w.device)
+            norm = norm_of(batch["labels"].numel() // nm)
             for i in range(nm):
-                mb = {k: micro(v, i) for k, v in batch.items()
+                mb = {k: micro(v, i) for k, v in local.items()
                       if k != "block_weight"}
                 if not dedup:
-                    mb["block_weight"] = batch["block_weight"]
-                l_i, g_i = value_and_grad(lambda p: loss_fn(p, mb, w),
-                                          params)
+                    mb["block_weight"] = local["block_weight"]
+                l_i, g_i = value_and_grad(
+                    lambda p: loss_fn(p, mb, w_l, norm), full)
                 grads = T.map(torch.add, grads, g_i)
                 loss = loss + l_i
             grads = T.map(lambda g: g / nm, grads)
             loss = loss / nm
+        del full
+        grads = _cross_rank(grads, workers, split, fsdp)
+        loss = _sum_loss(loss, workers, split)
         return finish(params, opt_state, loss, grads, w)
 
     return step
@@ -396,46 +523,116 @@ def make_manual_collective_train_step(cfg: ModelConfig,
                                       alpha_weights=None, compress=None,
                                       error_feedback: bool = True,
                                       streaming_chunk: Optional[int]
-                                      = None):
+                                      = None, *, workers=None,
+                                      fsdp=None):
     """Replicated-path train step whose combine is the explicit
-    ``coded_allreduce`` instead of autograd's fused one: the per-machine
-    gradients g_j are materialised (m x the gradient memory) and reduced
-    by the ``coded_combine`` kernel. ``compress`` quantizes them (with
-    error feedback) before the combine, which then runs on the payload;
-    the step's signature then carries the residual state as its third
-    argument, as in ``make_train_step``. ``streaming_chunk`` waits for
-    the distributed slice and raises.
+    ``coded_allreduce`` instead of autograd's fused one: each rank's
+    per-machine gradients g_j are materialised (m/W x the gradient
+    memory), reduced by the ``coded_combine`` kernel, and summed across
+    the ranks. ``compress`` quantizes them (with error feedback) before
+    the combine, which then runs on the payload; the step's signature
+    then carries the residual state (this rank's m/W machine rows) as
+    its third argument, as in ``make_train_step``.
+
+    ``streaming_chunk`` bounds how many per-machine gradients are live
+    at once: a loop over T = m / (W * chunk) steps takes ``chunk``
+    machines of every rank per step (``_to_stream_chunks``), combines
+    them (quantizing first under ``compress``) and accumulates into one
+    float32 tree; the residual chunks go back to machine order through
+    ``_from_stream_chunks``. The combine is linear in the g_j, so
+    streaming only reassociates the sum. The ranks sum their
+    accumulators once, after the last chunk, where the reference's scan
+    runs its psum per chunk: the same sum, reassociated, at 1/T of the
+    bytes. It needs m divisible by W * chunk. Without it the step is
+    the same loop over one chunk of all m/W rows.
     """
-    if streaming_chunk is not None:
-        if int(streaming_chunk) < 1:
-            raise ValueError("streaming_chunk must be >= 1")
-        raise NotImplementedError(
-            "streaming_chunk waits for the distributed slice of the port")
     codec = (None if compress is None
              else compress_mod.get_codec(compress))
-    finish = _finisher(optimizer, alpha_weights, dedup=False)
+    finish = _finisher(optimizer, alpha_weights, dedup=False, fsdp=fsdp)
+    chunk = None
+    if streaming_chunk is not None:
+        chunk = int(streaming_chunk)
+        if chunk < 1:
+            raise ValueError("streaming_chunk must be >= 1")
+
+    def combine(params, batch, w, residual):
+        n_shards = _n_worker_shards(workers)
+        m = int(w.shape[0])
+        if m % n_shards:
+            raise ValueError(f"m = {m} machines do not split over "
+                             f"{n_shards} worker ranks")
+        # materialising is the loop over one chunk of all m/W rows
+        c = m // n_shards if chunk is None else chunk
+        if m % (n_shards * c):
+            raise ValueError(
+                f"streaming needs m divisible by worker ranks x chunk = "
+                f"{n_shards} x {c}, got m={m}")
+        n_steps = m // (n_shards * c)
+        rank = 0 if workers is None else workers.rank
+        mine = slice(rank * c, (rank + 1) * c)
+        norm = batch["labels"].numel()
+        b_xs = {k: _to_stream_chunks(v, n_shards, c)
+                for k, v in batch.items()}
+        w_xs = _to_stream_chunks(w, n_shards, c)
+        full = _full(params, fsdp)
+        g_acc = l_acc = r_xs = r_ys = None
+        if residual is not None:
+            # this rank's m/W rows as (T, chunk, ...) views; over more
+            # than one chunk the new residual is written chunk by chunk
+            # in the same layout
+            r_xs = T.map(lambda x: _to_stream_chunks(x, 1, c), residual)
+            if n_steps > 1:
+                r_ys = T.map(torch.empty_like, r_xs)
+        for t in range(n_steps):
+            cb = {k: v[t, mine] for k, v in b_xs.items()}
+            w_c = w_xs[t, mine].clone()       # aligned for the kernels
+            losses, grads = _per_machine_values_and_grads(full, cb, cfg,
+                                                          norm=norm)
+            # the chunk's stack goes before the next chunk's is made
+            if codec is None:
+                contrib = coded_allreduce(grads, w_c)
+                del grads
+            else:
+                q_t, s_t, new_r, shapes = _quantize_rows(
+                    grads, T.map(lambda x: x[t], r_xs), codec,
+                    error_feedback)
+                del grads
+                if r_ys is None:      # the only chunk: no copy
+                    r_ys = T.map(lambda r: r.unsqueeze(0), new_r)
+                else:
+                    T.map(lambda y, r: y[t].copy_(r), r_ys, new_r)
+                del new_r
+                contrib = _compressed_allreduce(q_t, s_t, w_c, codec,
+                                                shapes)
+                del q_t, s_t
+            # the first contribution seeds the float32 accumulator (no
+            # copy for float32 gradients)
+            g_acc = (T.map(torch.Tensor.float, contrib) if g_acc is None
+                     else T.map(torch.Tensor.add_, g_acc, contrib))
+            l_i = (w_c * losses).sum()
+            l_acc = l_i if l_acc is None else l_acc + l_i
+            del contrib
+        del full
+        split = n_shards > 1
+        grads = _cross_rank(g_acc, workers, split, fsdp)
+        loss = _sum_loss(l_acc, workers, split)
+        new_resid = (None if r_ys is None else
+                     T.map(lambda y: _from_stream_chunks(y, 1, c), r_ys))
+        return grads, loss, new_resid
 
     if codec is not None:
         def compressed_step(params, opt_state, comp_state, batch, w):
-            losses, grads = _per_machine_values_and_grads(
-                params, batch, cfg)
-            loss = (w * losses).sum()
-            q_tree, s_tree, new_resid, shapes = _quantize_rows(
-                grads, comp_state["residual"], codec, error_feedback)
-            del grads
-            combined = _compressed_allreduce(q_tree, s_tree, w, codec,
-                                             shapes)
+            grads, loss, new_resid = combine(params, batch, w,
+                                             comp_state["residual"])
             params, opt_state, metrics = finish(
-                params, opt_state, loss, combined, w,
+                params, opt_state, loss, grads, w,
                 extra=_comm_metric(codec, w, params))
             return params, opt_state, {"residual": new_resid}, metrics
 
         return compressed_step
 
     def step(params, opt_state, batch, w):
-        losses, grads = _per_machine_values_and_grads(params, batch, cfg)
-        grads = coded_allreduce(grads, w)
-        loss = (w * losses).sum()
+        grads, loss, _ = combine(params, batch, w, None)
         return finish(params, opt_state, loss, grads, w)
 
     return step

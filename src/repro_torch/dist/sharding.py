@@ -14,8 +14,10 @@ names, or None -- the reference's ``PartitionSpec`` as a plain tuple
 Every rule passes through a divisibility check: a dim that does not
 divide the axis size falls back to replication, so the same rules hold
 on the 2x16x16 production layout, the (data, model) single pod and a
-one-device test layout. Nothing here places a tensor: executing a
-placement needs process groups, which the port does not set up yet.
+one-device test layout. Nothing here places a tensor:
+``dist.process_group.rank_rows`` executes ``leading_axis_specs`` and
+``dist.fsdp`` executes ``fsdp_specs`` over a worker group; the model
+axis's placements are not executed yet.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ Port of ``repro.launch.mesh`` as metadata. A ``Layout`` carries what the
 placement arithmetic (``dist.sharding``) reads of a mesh -- its axis
 names and ``shape`` -- and nothing else, so importing or building one
 touches no device. Coded gradient workers live on the (pod, data) axes,
-tensor parallelism on ``model``. Setting up the process groups that
-would execute such a layout is not part of this module.
+tensor parallelism on ``model``. ``dist.process_group`` forms the
+process groups of a layout.
 """
 
 from __future__ import annotations

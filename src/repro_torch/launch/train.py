@@ -9,10 +9,10 @@ restored from ``--ckpt-dir``.
   python -m repro_torch.launch.train --arch granite-3-8b --steps 20 \\
       --scheme expander --decoding optimal --straggler-p 0.2
 
-There is no mesh. The reference's worker count is its mesh's data-axis
-size (4 on its CPU demo mesh); here ``--machines`` (default 4) stands in
-for ``mesh.shape["data"]``, and the whole machine axis lives on the one
-device. Paths: ``--dedup`` (default) runs each unique block once,
+The reference's worker count is its mesh's data-axis size (4 on its CPU
+demo mesh); here ``--machines`` (default 4) stands in for
+``mesh.shape["data"]``, and on one process the whole machine axis lives
+on the one device. Paths: ``--dedup`` (default) runs each unique block once,
 weighted by v = A @ w; ``--no-dedup`` materialises the replicated
 (m, load, ...) machine batch; ``--collective manual`` reduces explicit
 per-machine gradients through the ``coded_combine`` kernel (replicated
@@ -48,16 +48,35 @@ generation per code. Every detection and re-assignment lands in the
 summary's ``chaos`` object (``--event-log FILE`` writes it as JSON).
 Chaos needs the dedup path, as in the reference.
 
+Under ``torchrun`` (``WORLD_SIZE`` set) the same driver runs on W
+worker ranks (``dist.process_group``: ``nccl`` on the card, ``gloo`` on
+the CPU), where the reference runs on its mesh's worker axes:
+
+  torchrun --nproc_per_node 4 -m repro_torch.launch.train --device cpu \\
+      --collective manual --stream-chunk 1
+
+Rank r owns machines ``[r*m/W, (r+1)*m/W)``, so ``--machines`` must be a
+multiple of W. Rank 0 builds the coding runtime, decodes each step's w
+and broadcasts it (one (m,) float32 vector); every rank builds the same
+coded batch from the seed, computes the gradient of its rows, and the
+ranks sum the partial combines (``coded_train``). Rank 0 prints.
+``--stream-chunk N`` (with ``--collective manual``) streams the combine
+over machine chunks; ``--fsdp`` shards the parameters and AdamW's
+moments over the ranks (``dist.fsdp``), and checkpoints still hold the
+whole tensors, so they restore into either placement; ``--production-
+mesh`` runs only on the production layout's 256 ranks. Chaos stays on
+one process: a re-assignment changes m, and the ranks' machine blocks
+would have to change with it.
+
 ``main(argv, cfg)`` takes a ``ModelConfig`` from a caller (it then
-replaces ``--arch`` / ``--full-config``). ``--fsdp``, ``--stream-chunk``
-and ``--production-mesh`` are accepted and refused: they wait for the
-distributed slice of the port.
+replaces ``--arch`` / ``--full-config``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -66,6 +85,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch import tree as T
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import CodingConfig, ModelConfig, get_config
 from repro_torch.core import compress as compress_mod
@@ -73,10 +93,10 @@ from repro_torch.core import step_weights as sw
 from repro_torch.data.pipeline import CodedBatcher, SyntheticLM
 from repro_torch.dist import chaos as chaos_mod
 from repro_torch.dist import coded_train, failures
+from repro_torch.dist import process_group as pg
+from repro_torch.dist.fsdp import FSDP, resident_bytes
 from repro_torch.models import model as M
 from repro_torch.optim import optimizers as opt_mod
-
-DISTRIBUTED = "waits for the distributed slice of the port"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -95,9 +115,11 @@ def _parser() -> argparse.ArgumentParser:
                     choices=("bernoulli", "markov", "adversarial"))
     ap.add_argument("--straggler-p", type=float, default=0.2)
     ap.add_argument("--replication", type=int, default=2)
-    ap.add_argument("--machines", type=int, default=4,
-                    help="coded workers m: the one-device stand-in for "
-                         "the reference mesh's data-axis size")
+    ap.add_argument("--machines", type=int, default=None,
+                    help="coded workers m, a multiple of the ranks W "
+                         "(default 4; the production layout's 16 under "
+                         "--production-mesh): the reference mesh's "
+                         "data-axis size")
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--block-size", type=int, default=4)
     ap.add_argument("--lr", type=float, default=3e-3)
@@ -138,19 +160,27 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--event-log", default=None, metavar="FILE",
                     help="write the summary's chaos object to FILE as "
                          "JSON")
-    # flags of a later slice: accepted, then refused with its name
-    ap.add_argument("--stream-chunk", type=int, default=0)
-    ap.add_argument("--fsdp", action="store_true")
-    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--stream-chunk", type=int, default=0,
+                    help="stream the manual combine over chunks of this "
+                         "many machines per rank (0: materialise all "
+                         "per-machine gradients; needs --collective "
+                         "manual)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard params and AdamW moments over the "
+                         "worker ranks (sharding.fsdp_specs)")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the production layout's groups (data=16 x "
+                         "model=16); needs WORLD_SIZE 256")
     return ap
 
 
 def _check_args(ap, args) -> None:
-    for flag, given in (("--stream-chunk", args.stream_chunk),
-                        ("--fsdp", args.fsdp),
-                        ("--production-mesh", args.production_mesh)):
-        if given:
-            ap.error(f"{flag} {DISTRIBUTED}")
+    if args.stream_chunk < 0:
+        ap.error("--stream-chunk must be >= 0")
+    if args.stream_chunk and args.collective != "manual":
+        ap.error("--stream-chunk requires --collective manual (the "
+                 "streaming accumulator replaces the materialised "
+                 "manual combine)")
     if args.collective == "manual" and args.microbatches != 1:
         ap.error("--microbatches is only supported with "
                  "--collective gspmd")
@@ -207,17 +237,64 @@ def _restore(args, params, opt_state, comp_state, compress, runtime):
     elif compress:
         print("checkpoint has no compression state; resuming with zero "
               "error-feedback residual")
-    runtime.skip(step0)
+    if runtime is not None:       # rank 0's mask stream
+        runtime.skip(step0)
     print(f"restored step-{step0} {label} checkpoint from "
           f"{args.ckpt_dir}")
     return step0, state["params"], state["opt_state"], comp_state
+
+
+def _check_layout(ap, args, workers, m: int) -> None:
+    """The refusals that need the world size W."""
+    size = workers.size
+    if m % size:
+        ap.error(f"--machines {m} must be a multiple of the {size} worker "
+                 "ranks (rank r owns machines [r*m/W, (r+1)*m/W))")
+    if args.stream_chunk and m % (size * args.stream_chunk):
+        ap.error(f"--stream-chunk {args.stream_chunk} needs m = {m} "
+                 f"divisible by worker ranks x chunk = {size} x "
+                 f"{args.stream_chunk}")
+    if size > 1 and args.chaos:
+        ap.error("--chaos runs on one process: a re-assignment changes "
+                 "m, and the ranks' machine blocks would change with it")
+
+
+def _shared_weights(w, m: int, workers, dev) -> np.ndarray:
+    """Rank 0's decoded (m,) weights on every rank: one float32
+    broadcast over the worker group."""
+    w_t = (torch.from_numpy(np.asarray(w, np.float32)).to(dev)
+           if w is not None else
+           torch.empty(m, dtype=torch.float32, device=dev))
+    return workers.broadcast_(w_t).cpu().numpy()
+
+
+def _device_of_rank(dev: torch.device) -> torch.device:
+    """Under torchrun each rank takes the card ``LOCAL_RANK``."""
+    if dev.type == "cuda" and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+    return dev
 
 
 def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
     ap = _parser()
     args = ap.parse_args(argv)
     _check_args(ap, args)
-    dev = _device.resolve(args.device)
+    dev = _device_of_rank(_device.resolve(args.device))
+    formed = torch.distributed.is_initialized()
+    try:
+        try:
+            workers = pg.init_workers(dev, production=args.production_mesh)
+        except ValueError as exc:
+            ap.error(f"--production-mesh: {exc}")
+        return _train(ap, args, cfg, dev, workers)
+    finally:
+        if not formed and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(ap, args, cfg, dev, workers) -> dict:
+    lead = workers.rank == 0
     if cfg is None:
         cfg = get_config(args.arch)
         if not args.full_config:
@@ -225,6 +302,10 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
 
     dedup = args.collective == "gspmd" and args.dedup is not False
     m_workers = args.machines
+    if m_workers is None:
+        m_workers = (workers.layout.shape["data"]
+                     if args.production_mesh else 4)
+    _check_layout(ap, args, workers, m_workers)
     coding = CodingConfig(
         scheme=args.scheme, replication=args.replication,
         decoding=args.decoding, straggler_model=args.straggler_model,
@@ -243,9 +324,16 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
             dead_after=args.dead_after)
         surv = failures.SurvivorMap(m_workers)
         mask_source = sw.ObservedMaskSource(m_workers)
-    runtime = coded_train.CodingRuntime(coding, m_workers,
-                                        mask_source=mask_source,
-                                        adaptive=adaptive, device=dev)
+    # Rank 0 samples and decodes; the others take w from its broadcast
+    # and need only the assignment.
+    runtime = None
+    if lead:
+        runtime = coded_train.CodingRuntime(coding, m_workers,
+                                            mask_source=mask_source,
+                                            adaptive=adaptive, device=dev)
+        assignment = runtime.assignment
+    else:
+        assignment = coded_train.make_assignment(coding, m_workers)
     lookahead = max(1, args.lookahead)
     log_every = args.log_every or max(1, args.steps // 10)
     source = SyntheticLM(cfg.vocab_size, args.seq_len, seed=args.seed)
@@ -254,7 +342,7 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
     optimizer = opt_mod.get_optimizer("adamw", args.lr)
     opt_state = optimizer.init(params)
     compress = None if args.compress == "none" else args.compress
-    comp_rows = runtime.assignment.n if dedup else m_workers
+    comp_rows = assignment.n if dedup else m_workers
     comp_state = (compress_mod.init_state(params, comp_rows)
                   if compress else None)
     codec = compress_mod.get_codec(compress) if compress else None
@@ -265,6 +353,21 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
     if args.ckpt_dir:
         start, params, opt_state, comp_state = _restore(
             args, params, opt_state, comp_state, compress, runtime)
+    # Placement on the ranks: FSDP shards, and the residual keeps this
+    # rank's rows (all of them where the rows stay whole).
+    fsdp = FSDP(params, workers) if args.fsdp else None
+    if fsdp is not None:
+        params = fsdp.shard(params)
+        opt_state = fsdp.opt_shard(opt_state)
+    rows_split = workers.distributed and (
+        not dedup or pg.block_rows_split(comp_rows, workers.size))
+    if compress and rows_split:
+        comp_state = {"residual": T.map(
+            lambda x: x.clone(memory_format=torch.contiguous_format),
+            pg.rank_rows(comp_state["residual"], workers.size,
+                         workers.rank))}
+    resident = {"params": resident_bytes(params),
+                "opt_state": resident_bytes(opt_state)}
 
     losses = []
     metrics_hist = []          # device scalars, flushed at log points
@@ -280,23 +383,33 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
         metrics_hist.clear()
 
     def save_ckpt(step: int):
+        # every rank joins the gathers; rank 0 writes the whole tensors
         state = {"params": params, "opt_state": opt_state}
+        if fsdp is not None:
+            state = {"params": fsdp.gather(params),
+                     "opt_state": fsdp.opt_gather(opt_state)}
         if compress:
-            state["compress"] = comp_state
-        ckpt.save(args.ckpt_dir, state, step=step)
-        print(f"saved step-{step} checkpoint to {args.ckpt_dir}")
+            state["compress"] = (
+                {"residual": pg.gather_rows(comp_state["residual"],
+                                            workers)}
+                if rows_split else comp_state)
+        if lead:
+            ckpt.save(args.ckpt_dir, state, step=step)
+            print(f"saved step-{step} checkpoint to {args.ckpt_dir}")
 
     pool = ThreadPoolExecutor(max_workers=1)
     generation = 0
     step = start
     rebuild_started = None
+    traffic0 = dict(pg.traffic)
     t0 = time.time()
     try:
         # One generation per code: the batcher and the step are built
         # anew when a re-assignment changes the assignment. Without
         # --chaos there is one generation.
         while step < args.steps:
-            assignment = runtime.assignment
+            if runtime is not None:
+                assignment = runtime.assignment
             global_batch = assignment.n * args.block_size
             batcher = CodedBatcher(assignment, shuffle_seed=args.seed)
             emit = batcher.unique_blocks if dedup else batcher.code_batch
@@ -308,13 +421,16 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
             if args.collective == "manual":
                 train_step = coded_train.make_manual_collective_train_step(
                     cfg, optimizer, alpha_weights=alpha_w,
-                    compress=compress)
+                    compress=compress,
+                    streaming_chunk=args.stream_chunk or None,
+                    workers=workers, fsdp=fsdp)
             else:
                 train_step = coded_train.make_train_step(
                     cfg, optimizer, n_microbatches=args.microbatches,
                     dedup=dedup,
                     norm_scale=coded_train.dedup_norm_scale(assignment),
-                    alpha_weights=alpha_w, compress=compress)
+                    alpha_weights=alpha_w, compress=compress,
+                    workers=workers, fsdp=fsdp)
             batch_np = host_batch(step)
             if compress and generation > 0:
                 # the residual's rows follow the re-drawn block axis
@@ -327,7 +443,7 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
             # Observed masks (chaos) decode per step: a mask is not
             # known before its heartbeats.
             lookahead_w = None
-            if not args.chaos:
+            if lead and not args.chaos:
                 lookahead_w = coded_train.LookaheadPrefetcher(
                     runtime, pool, lookahead, args.steps - step)
             pending = None
@@ -340,14 +456,18 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
                     pending = pool.submit(host_batch, step + 1)
                 batch = {k: torch.from_numpy(v).to(dev)
                          for k, v in batch_np.items()}
+                alive = None
                 if args.chaos:
                     observed = monitor.observe(
                         step, injector.completion_times(step))
                     runtime.mask_source.push(surv.localize(observed))
                     w, alive = runtime.step_weights()
-                else:
+                elif lead:
                     w, alive = lookahead_w.next()
-                wv = runtime.block_weights(w) if dedup else w
+                if workers.distributed:
+                    w = _shared_weights(w if lead else None, assignment.m,
+                                        workers, dev)
+                wv = sw.block_weights(assignment, w) if dedup else w
                 wv = torch.from_numpy(np.asarray(wv, np.float32)).to(dev)
                 with torch.no_grad():
                     if compress:
@@ -360,9 +480,11 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
                 metrics_hist.append(metrics)
                 if step % log_every == 0 or step == args.steps - 1:
                     flush_metrics()
-                    print(f"step {step:4d} loss {losses[-1]:.4f} "
-                          f"stragglers {int((~alive).sum())}/{runtime.m} "
-                          f"({time.time() - t0:.1f}s)")
+                    if lead:
+                        print(f"step {step:4d} loss {losses[-1]:.4f} "
+                              f"stragglers {int((~alive).sum())}/"
+                              f"{assignment.m} "
+                              f"({time.time() - t0:.1f}s)")
                 if args.ckpt_dir and args.ckpt_every and \
                         (step + 1) % args.ckpt_every == 0 and \
                         step + 1 < args.steps:
@@ -418,6 +540,7 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
             save_ckpt(args.steps)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+    traffic = {k: pg.traffic[k] - traffic0[k] for k in traffic0}
     # The per-step coded loss is scaled by the straggler draw, so compare
     # window means; a resumed run sees only its own tail of the stream.
     if losses and start == 0:
@@ -450,15 +573,20 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
                "path": "dedup" if dedup else "replicated",
                "collective": args.collective,
                "compress": args.compress,
-               "stream_chunk": 0, "fsdp": False,
+               "stream_chunk": args.stream_chunk, "fsdp": args.fsdp,
+               "world_size": workers.size,
                "comm_bytes_per_step": comm_bytes,
                "comm_bytes_per_step_float32": comm_bytes_f32,
-               "decode_calls": runtime.decode_calls,
+               "decode_calls": runtime.decode_calls if lead else 0,
                "chaos": chaos_summary,
+               "resident_bytes": resident,
+               "collective_bytes_per_step": {
+                   k: v / max(1, args.steps - start)
+                   for k, v in traffic.items()},
                "device": (torch.cuda.get_device_name(dev)
                           if dev.type == "cuda" else "cpu"),
                "loop_s": wall}
-    if runtime.policy is not None:
+    if runtime is not None and runtime.policy is not None:
         est = runtime.estimator.estimate()
         summary["adaptive"] = {
             "policy": args.adaptive,
@@ -466,7 +594,8 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
             "persistence_hat": est.persistence_hat,
             "decision_counts": dict(runtime.decision_counts),
         }
-    print(json.dumps(summary))
+    if lead:
+        print(json.dumps(summary))
     return summary
 
 

@@ -46,21 +46,34 @@ FILES = {"kernels": ["BENCH_torch_kernels.json"],
 
 @pytest.fixture(scope="module")
 def sections(tmp_path_factory):
-    """One CPU run of each section, into its own directory, on two torch
-    threads: the suite's other workers share the host."""
-    out = {}
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        _run_sections(tmp_path_factory, out)
-    finally:
-        torch.set_num_threads(threads)
-    return out
+    """Each section's CPU run, made on first use and kept for the
+    module, on two torch threads (the suite's other workers share the
+    host). A section that raised re-raises in its own tests only."""
+    return _Sections(tmp_path_factory)
 
 
-def _run_sections(tmp_path_factory, out):
-    for name in run.SECTIONS:
-        d = tmp_path_factory.mktemp(name)
+class _Sections:
+    def __init__(self, tmp_path_factory):
+        self._factory = tmp_path_factory
+        self._done = {}
+
+    def __getitem__(self, name):
+        if name not in self._done:
+            threads = torch.get_num_threads()
+            torch.set_num_threads(2)
+            try:
+                self._done[name] = (True, self._run(name))
+            except Exception as exc:      # kept, re-raised per test
+                self._done[name] = (False, exc)
+            finally:
+                torch.set_num_threads(threads)
+        ok, value = self._done[name]
+        if not ok:
+            raise value
+        return value
+
+    def _run(self, name):
+        d = self._factory.mktemp(name)
         argv = ["--device", "cpu", "--fast", "--only", name, "--out",
                 str(d)]
         if name == "roofline":
@@ -68,7 +81,7 @@ def _run_sections(tmp_path_factory, out):
             dryrun.main(["--arch", "granite-3-8b", "--shape", "decode_32k",
                          "--out", str(dry)])
             argv += ["--dryrun-dir", str(dry)]
-        out[name] = (d, run.main(argv))
+        return d, run.main(argv)
 
 
 @pytest.mark.parametrize("name", run.SECTIONS)
@@ -94,10 +107,20 @@ def test_section_writes_valid_json_and_passes(sections, name):
         assert acc["coded_p99_lt_uncoded"]
     if name == "train_step":
         rep = res["results"]["train_step"]
-        assert len(rep["runs"]) == 7 and rep["chaos"]["m_final"] == 3
-        assert rep["pending"][0]["pending"] == "A3 streaming"
+        assert len(rep["runs"]) == 9 and rep["chaos"]["m_final"] == 3
+        assert "pending" not in rep
+        # the streaming-vs-materialising manual pair, m = 8
+        pair = [r for r in rep["runs"] if r["m_workers"] == 8]
+        assert [(r["collective"], r["stream_chunk"]) for r in pair] == \
+            [("manual", 0), ("manual", 1)]
+        assert pair[1]["memory"]["temp_bytes"] < \
+            pair[0]["memory"]["temp_bytes"]
+        assert rep["paired"]["dedup_ms"] < rep["paired"]["replicated_ms"]
         assert [r["compress"] for r in rep["comm"]] == \
             [r["compress"] for r in rep["runs"]]
+        # each comm row names its run: the m = 8 pair differs only there
+        assert [(r["m_workers"], r["stream_chunk"]) for r in rep["comm"]] \
+            == [(r["m_workers"], r["stream_chunk"]) for r in rep["runs"]]
     if name == "decoding":
         sweep = res["results"]["sweep"]
         assert sweep["regime2_grid"]["bit_identical_mean_std"]
@@ -136,7 +159,8 @@ def test_train_comm_bytes_equal_the_reference(sections):
     params = jax.eval_shape(lambda: RM.init_params(
         r_get_config(rep["arch"]).smoke_variant(), jax.random.PRNGKey(0)))
     for r in rep["runs"]:
-        rows = 4 if r["path"] == "replicated" else r["global_batch"] // 4
+        rows = (r["m_workers"] if r["path"] == "replicated"
+                else r["global_batch"] // 4)
         codec = (None if r["compress"] == "none"
                  else r_compress.get_codec(r["compress"]))
         assert r["comm_bytes_per_step"] == \

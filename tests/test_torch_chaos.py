@@ -186,10 +186,10 @@ def test_machines_1000_runs_on_the_host():
     (["--event-log", "x.json"], "--chaos"),
     (["--chaos", "kill:1@3", "--no-dedup"], "dedup"),
     (["--chaos", "kill:1@3", "--collective", "manual"], "dedup"),
-    (["--fsdp"], "distributed slice"),
-    (["--stream-chunk", "2"], "distributed slice"),
-    (["--production-mesh"], "distributed slice")])
+    (["--collective", "manual", "--stream-chunk", "3"], "divisible"),
+    (["--stream-chunk", "2"], "--collective manual"),
+    (["--production-mesh"], "needs 256 ranks")])
 def test_driver_refuses_as_the_reference(flags, needle, capsys):
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit) as exc:
         ttrain.main(["--device", "cpu", "--steps", "1", *flags])
-    assert needle in capsys.readouterr().err
+    assert needle in capsys.readouterr().err + str(exc.value.code)

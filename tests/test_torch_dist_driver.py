@@ -1,0 +1,180 @@
+"""The port's training driver on 4 ``gloo`` ranks (spawned with
+``torch.multiprocessing`` over a ``FileStore``; each rank calls
+``launch.train.main`` in process), on the CPU, at the arguments of
+``tests/test_smoke_train.py`` (qwen1.5-4b smoke variant, 12 steps,
+sequences of 32 in blocks of 2, p = 0.2).
+
+- ``--collective manual --stream-chunk 1`` against the reference driver
+  on its 8-virtual-device (data=4, model=2) mesh, both from one
+  params-only checkpoint of reference parameters: m = 4 on both, the
+  same path and comm bytes, and the loss streams within rtol 1e-4 (the
+  drivers' tolerance of tests/test_torch_train.py).
+- ``--dedup --fsdp`` against the port's one-process driver from the same
+  checkpoint, within rtol 1e-4; a 4-rank FSDP run resumes the one-process
+  run's step-6 checkpoint and its tail equals that run's; the checkpoint
+  it writes holds the whole tensors and restores into a one-process run.
+- Refusals: ``--stream-chunk`` without ``--collective manual``, chaos on
+  W > 1 ranks, and ``--machines`` not a multiple of W.
+
+The reference package is imported inside the tests only, so the spawned
+ranks never load JAX.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.checkpoint import checkpoint as tckpt
+from repro_torch.launch import train as ttrain
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGS = ["--arch", "qwen1.5-4b", "--steps", "12", "--seq-len", "32",
+         "--block-size", "2", "--straggler-p", "0.2"]
+WORLD = 4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: the suite's other workers share the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _entry(rank, world, tmp, jobs):
+    import traceback
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(tmp, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    out = {}
+    try:
+        for key, argv in jobs.items():
+            try:
+                out[key] = ("ok", ttrain.main(argv))
+            except SystemExit as exc:
+                out[key] = ("exit", str(exc.code))
+            except BaseException:           # reported by the job's test
+                out[key] = ("error", traceback.format_exc())
+        torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every 4-rank driver run of the module, in one spawn; and the
+    one-process runs they are held to."""
+    from repro.checkpoint import checkpoint as rckpt
+    from repro.configs import get_config as rget
+    import jax
+    from repro.models import model as RM
+    tmp = tmp_path_factory.mktemp("driver")
+    tree = jax.tree.map(np.asarray, RM.init_params(
+        rget("qwen1.5-4b").smoke_variant(), jax.random.PRNGKey(3)))
+    for d in ("ref", "stream", "fsdp", "single"):
+        rckpt.save(str(tmp / d), tree, step=0)
+    # the one-process dedup run, with a composite checkpoint at step 6
+    single = ttrain.main(["--device", "cpu", *FLAGS, "--ckpt-dir",
+                          str(tmp / "single"), "--ckpt-every", "6"])
+    shutil.copytree(tmp / "single", tmp / "resume")
+    os.remove(tmp / "resume" / "ckpt_00000012.npz")
+    cpu = ["--device", "cpu", *FLAGS]
+    jobs = {"stream": cpu + ["--collective", "manual", "--stream-chunk",
+                             "1", "--ckpt-dir", str(tmp / "stream")],
+            "fsdp": cpu + ["--fsdp", "--ckpt-dir", str(tmp / "fsdp")],
+            "resume": cpu + ["--fsdp", "--ckpt-dir", str(tmp / "resume")],
+            "chaos": cpu + ["--chaos", "kill:1@3"],
+            "machines": cpu + ["--machines", "6"]}
+    mp.spawn(_entry, args=(WORLD, str(tmp), jobs), nprocs=WORLD, join=True)
+    ranks = [torch.load(tmp / f"out{r}.pt", weights_only=False)
+             for r in range(WORLD)]
+    return {"tmp": tmp, "single": single, "ranks": ranks}
+
+
+def _rank0(runs, key):
+    status, value = runs["ranks"][0][key]
+    assert status == "ok", value
+    for other in runs["ranks"][1:]:
+        assert other[key][0] == "ok", other[key][1]
+        # every rank sees the summed loss
+        assert other[key][1]["losses"] == value["losses"]
+    return value
+
+
+def test_streaming_manual_on_four_ranks_matches_reference_driver(runs):
+    tmp = runs["tmp"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    ref = subprocess.run(
+        [sys.executable, "-m", "repro.launch.train", *FLAGS,
+         "--collective", "manual", "--stream-chunk", "1",
+         "--ckpt-dir", str(tmp / "ref")], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=420)
+    assert ref.returncode == 0, ref.stdout + ref.stderr
+    r = json.loads(ref.stdout.strip().splitlines()[-1])
+    p = _rank0(runs, "stream")
+    assert r["m_workers"] == p["m_workers"] == 4
+    assert p["world_size"] == WORLD and p["stream_chunk"] == 1
+    for key in ("path", "collective", "compress", "comm_bytes_per_step",
+                "comm_bytes_per_step_float32", "decode_calls"):
+        assert p[key] == r[key], key
+    np.testing.assert_allclose(p["losses"], r["losses"], rtol=1e-4)
+    # one machine a rank: one all_reduce of the float32 gradient a step
+    # (and of the loss), one broadcast of w
+    assert p["collective_bytes_per_step"]["broadcast"] == 4 * 4
+    assert p["collective_bytes_per_step"]["all_reduce"] >= \
+        p["comm_bytes_per_step_float32"] / 4
+
+
+def test_fsdp_on_four_ranks_matches_the_one_process_driver(runs):
+    p = _rank0(runs, "fsdp")
+    single = runs["single"]
+    assert p["fsdp"] and p["world_size"] == WORLD and p["path"] == "dedup"
+    np.testing.assert_allclose(p["losses"], single["losses"], rtol=1e-4)
+    # parameters and moments sharded: under a quarter of the whole bytes
+    # plus the leaves that do not split
+    assert p["resident_bytes"]["params"] < \
+        single["resident_bytes"]["params"] / 2
+    assert p["collective_bytes_per_step"]["reduce_scatter"] > 0
+
+
+def test_fsdp_resumes_a_one_process_checkpoint_and_writes_whole_tensors(
+        runs):
+    p = _rank0(runs, "resume")
+    single = runs["single"]
+    assert p["start_step"] == 6
+    np.testing.assert_allclose(p["losses"], single["losses"][6:],
+                               rtol=1e-4)
+    tmp = runs["tmp"]
+    assert tckpt.saved_steps(str(tmp / "resume")) == [0, 6, 12]
+    back = ttrain.main(["--device", "cpu", *FLAGS[:2], "--steps", "14",
+                        *FLAGS[4:], "--ckpt-dir", str(tmp / "resume")])
+    assert back["start_step"] == 12 and len(back["losses"]) == 2
+
+
+def test_driver_refusals_on_four_ranks(runs, capsys):
+    for rank in runs["ranks"]:
+        status, code = rank["chaos"]
+        assert status == "exit" and code == "2"
+        status, code = rank["machines"]
+        assert status == "exit" and code == "2"
+    with pytest.raises(SystemExit):
+        ttrain.main(["--device", "cpu", "--stream-chunk", "1"])
+    assert "--collective manual" in capsys.readouterr().err
+    # one process is not the production layout's 256 ranks
+    with pytest.raises(SystemExit):
+        ttrain.main(["--device", "cpu", "--production-mesh"])
+    err = capsys.readouterr().err
+    assert "--production-mesh" in err and "256" in err and "has 1" in err

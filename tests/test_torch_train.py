@@ -263,9 +263,17 @@ def test_manual_collective_step_equals_autograd_step():
                                m2["alpha_bar"].item(), rtol=1e-6)
     for a, b in zip(T.leaves(p1), T.leaves(p2)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD_TOL)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    # the streaming combine (two machines a chunk) is the same step
+    s_str = TT.make_manual_collective_train_step(
+        tcfg, opt, alpha_weights=aw, streaming_chunk=2)
+    p3, _, m3 = s_str(params, opt.init(params), coded, w)
+    np.testing.assert_allclose(m3["loss"].item(), m2["loss"].item(),
+                               rtol=1e-5)
+    for a, b in zip(T.leaves(p3), T.leaves(p2)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD_TOL)
+    with pytest.raises(ValueError, match="streaming_chunk"):
         TT.make_manual_collective_train_step(tcfg, opt,
-                                             streaming_chunk=2)
+                                             streaming_chunk=0)
 
 
 @pytest.mark.parametrize("dedup", [False, True])
@@ -502,20 +510,20 @@ def test_driver_needs_cuda_unless_asked_for_the_cpu():
         ttrain.main(["--steps", "1"])
 
 
-@pytest.mark.parametrize("flag", [["--fsdp"], ["--stream-chunk", "2"],
-                                  ["--chaos", "kill:1@3", "--no-dedup"],
-                                  ["--event-log", "events.json"],
-                                  ["--production-mesh"],
-                                  ["--chaos", "kill:1@3", "--collective",
-                                   "manual"],
-                                  ["--chaos", "kill:1@3", "--ckpt-dir",
-                                   "ckpt"],
-                                  ["--collective", "manual", "--dedup"]])
+@pytest.mark.parametrize("flag", [
+    (["--collective", "manual", "--stream-chunk", "3"], "divisible"),
+    (["--stream-chunk", "2"], "--collective manual"),
+    (["--chaos", "kill:1@3", "--no-dedup"], "dedup"),
+    (["--event-log", "events.json"], "--chaos"),
+    (["--production-mesh"], "needs 256 ranks"),
+    (["--chaos", "kill:1@3", "--collective", "manual"], "dedup"),
+    (["--chaos", "kill:1@3", "--ckpt-dir", "ckpt"], "--chaos"),
+    (["--collective", "manual", "--dedup"], "dedup")])
 def test_driver_refuses_later_slices_and_bad_combinations(flag, capsys):
-    with pytest.raises(SystemExit):
-        ttrain.main(["--device", "cpu", "--steps", "1", *flag])
-    err = capsys.readouterr().err
-    assert ("slice" in err) or ("dedup" in err) or ("--chaos" in err)
+    argv, says = flag
+    with pytest.raises(SystemExit) as exc:
+        ttrain.main(["--device", "cpu", "--steps", "1", *argv])
+    assert says in capsys.readouterr().err + str(exc.value.code)
 
 
 def test_driver_resume_replays_the_tail(tmp_path):

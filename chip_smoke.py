@@ -31,7 +31,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    comparison is bitwise and also against the float64 NumPy oracles;
    quantized_combine also at the elastic run's 3 rows of D = 104,857,600,
    and all three at the distributed path's rows a rank (2, and a
-   streaming chunk of 1) of D = 104,857,600.
+   streaming chunk of 1) of D = 104,857,600. The int8 and packed rows
+   carry their launch plan (``plan_combine``: the bulk route from 2^24
+   positions, the lane route below, or the generic kernels), the time of
+   both vector routes on the same folded weights (``bulk_ms``,
+   ``lane_ms``, each bitwise equal to the planned launch), the
+   output's write
+   alone (``copy_ms``, packed) or the int8-to-float32 copy of one row
+   (``copy_ms``, int8 at one row), and quantized_combine at one row the
+   PyTorch call ``torch.mul(q[0], u0)`` (``library_ms``, equal to the
+   kernel); then both at their edges on exact inputs (``EDGE_SHAPES``:
+   several tiles and a tail on each route) and
+   a payload one byte off a 16-byte boundary, which must take the
+   generic route and give the aligned launch's bits.
    The harness kernels -- fused_error (K6), gram_matvec with a 1-D v and
    with 8 right-hand sides (K7a) and gram_matvec_batch (K7b) -- at the
    harness path's shapes (trials = 30 and 1000 over n = 2184; the
@@ -149,10 +161,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``train_4k`` (it must fit the card), and the argument-bytes
    cross-check: the dry-run's bytes of the train bench's dedup step
    within 2 % of what the allocator holds just before its first step.
-8. The launch plans of the four redesigned kernels at the path shapes
+8. The launch plans of the six redesigned kernels at the path shapes
    (rmsnorm's and fused_error's threads a row, decode_attention's
-   chunks, gram_matvec's strips and clusters; each timed K1 and K6 row
-   also carries its plan), a
+   chunks, gram_matvec's strips and clusters, the int8 and packed
+   combines' routes, tiles and stages at both path widths; each timed
+   K1, K4, K5 and K6 row also carries its plan), a
    ``kernels`` JSON line (K1-K7, eight entry points), then the card line,
    then the result line.
 """
@@ -188,6 +201,15 @@ PATH_D = (104_857_600, 8_192)
 ODD_D = (1, 7, 9, 1_000_003)
 COMBINE_ROWS = 4
 RANK_ROWS = (2, 1)
+# The int8 and packed combines' edges (rows, D), on exact inputs, on each
+# route: generic (no whole 16-byte rows: 1,000,003 and 3 * 4096 + 5),
+# lane (int8 3 * 4096 + 16; packed 1,048,701 ends 3 short of a whole
+# float4) and the bulk route's short last tile (16 int8 positions past
+# 2^24; 125 packed ones at 16,777,341). The float64 NumPy oracle up to
+# ORACLE_MAX_D.
+EDGE_SHAPES = ((1, 1_000_003), (2, 3 * 4096 + 5), (1, 3 * 4096 + 16),
+               (2, 1_048_701), (1, (1 << 24) + 16), (2, 16_777_341))
+ORACLE_MAX_D = 17_000_000
 COMBINES = ("coded_combine", "quantized_combine", "packed_sign_combine")
 # Training: loss streams through the kernels vs the plain versions.
 LOSS_RTOL = 1e-2
@@ -377,7 +399,8 @@ def _combine_inputs(torch, dev, kind, d, dtype, exact, seed,
                     n=COMBINE_ROWS):
     """(payload, scales, w) for one combine of n rows. Exact inputs:
     integer payloads, power-of-two weights and scales, so every float32
-    partial sum is exact; both kinds carry a dead row (w = 0)."""
+    partial sum is exact; more than one row carries a dead row (w = 0),
+    one row is live."""
     g = torch.Generator(device=dev).manual_seed(seed)
     if exact:
         w = 2.0 ** torch.randint(-3, 3, (n,), generator=g,
@@ -387,7 +410,8 @@ def _combine_inputs(torch, dev, kind, d, dtype, exact, seed,
     else:
         w = torch.rand(n, generator=g, device=dev) * 2
         scales = torch.rand(n, generator=g, device=dev) + 0.01
-    w[n // 2] = 0.0
+    if n > 1:   # a dead row, and at one row a live one
+        w[n // 2] = 0.0
     if kind == "packed_sign_combine":
         x = torch.randint(0, 256, (n, (d + 7) // 8), generator=g,
                           device=dev, dtype=torch.uint8)
@@ -428,7 +452,7 @@ def check_combine(torch, dev, kind, d, dtype, exact, time_it=True,
         if not torch.equal(out, want):
             raise AssertionError(f"{label}: kernel differs from its plain "
                                  f"version on exact inputs (max {err})")
-        if kind != "coded_combine" and d <= 1_000_003:
+        if kind != "coded_combine" and d <= ORACLE_MAX_D:
             xs, ss, ws = (a.cpu().numpy() for a in (x, scales, w))
             oracle = (ref.quantized_combine_np(xs, ss, ws)
                       if kind == "quantized_combine"
@@ -437,15 +461,24 @@ def check_combine(torch, dev, kind, d, dtype, exact, time_it=True,
                 raise AssertionError(f"{label}: kernel differs from the "
                                      "float64 NumPy oracle")
         # the dead row's payload must not matter: replace it, same bits
-        x2 = x.clone()
-        x2[n // 2] = x2[0]
-        if not torch.equal(fn(x2, *args[1:]), out):
-            raise AssertionError(f"{label}: a dead row changed the output")
+        if n > 1:
+            x2 = x.clone()
+            x2[n // 2] = x2[0]
+            if not torch.equal(fn(x2, *args[1:]), out):
+                raise AssertionError(f"{label}: a dead row changed the "
+                                     "output")
     else:
         _compare(torch, out, want, COMBINE_TOL, label)
     row = dict(kernel=kind, shape=label, dtype=dtype, max_abs_err=err,
                exact=exact)
+    if kind != "coded_combine":
+        from repro_torch.kernels import _launch
+        from repro_torch.kernels.coded_combine import kernel
+        row["plan"] = _plan(kernel, "plan_combine", kind.split("_")[0], n,
+                            d, x.element_size(), _launch.sm_count(dev))
     if time_it:
+        from repro_torch.launch.timing import graph_ms
+        reps = 4 if d > 10_000_000 else 20
         out_bytes = d * out.element_size()
         nbytes = x.numel() * x.element_size() + out_bytes + 8 * n
         bound, by = _bound_ms(nbytes, 2 * n * d, "float32")
@@ -453,10 +486,62 @@ def check_combine(torch, dev, kind, d, dtype, exact, time_it=True,
         if kind == "coded_combine":
             wl = w.to(x.dtype)
             library = lambda: torch.mv(x.t(), wl)  # noqa: E731
+        elif kind == "quantized_combine" and n == 1:
+            # one PyTorch call computes K4 at one row: an int8 row times
+            # a 0-dim float32 tensor promotes to float32, u * q exactly
+            u0 = w[0] * scales[0]
+            library = lambda: torch.mul(x[0], u0)  # noqa: E731
+            if not torch.equal(library(), out):
+                raise AssertionError(f"{label}: torch.mul(q[0], u0) "
+                                     "differs from the kernel")
+        # one PyTorch call that moves the same bytes, a yardstick: K4's
+        # int8-to-float32 copy of its one row, K5's output written alone
+        if kind != "coded_combine":
+            o = torch.empty_like(out)
+            if kind == "packed_sign_combine":
+                row["copy_ms"] = graph_ms(o.zero_, reps=reps)
+            elif n == 1:
+                row["copy_ms"] = graph_ms(lambda: o.copy_(x[0]), reps=reps)
+            row.update(_route_ms(torch, dev, kind, x, scales, w, d, out,
+                                 reps))
         row.update(bound_ms=bound, bound_by=by, **_times(
             torch, lambda: fn(*args), lambda: plain(*args), library,
-            reps=4 if d > 10_000_000 else 20))
+            reps=reps))
     _say("kernel", **row)
+    return row
+
+
+def _route_ms(torch, dev, kind, x, scales, w, d, out, reps):
+    """Both vector routes of the int8 and packed combines, bulk and lane,
+    at the same inputs and folded weights (the kernel's binding, without
+    the wrapper's ``w * scales``): each bitwise equal to the planned
+    launch, and its device ms (``bulk_ms``, ``lane_ms``). Empty where the
+    checkout being timed has no such routes or the shape takes the
+    generic kernels."""
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels.coded_combine import kernel
+    if not hasattr(kernel, "plan_lane") or x.dtype == torch.float32:
+        return {}
+    short, n, sms = kind.split("_")[0], x.shape[0], _launch.sm_count(dev)
+    if kernel.plan_combine(short, n, d, 1, sms).route == "generic":
+        return {}
+    from repro_torch.launch.timing import graph_ms
+    u = w.float() * scales.float()
+    row = {}
+    for plan in (kernel.plan_bulk(short, n, d, sms),
+                 kernel.plan_lane(short, n, d, sms)):
+        if plan is None:
+            continue
+        if kind == "quantized_combine":
+            call = lambda: kernel.quantized_combine(  # noqa: E731
+                x, u, plan)
+        else:
+            call = lambda: kernel.packed_sign_combine(  # noqa: E731
+                x, u, d, plan)
+        if not torch.equal(call(), out):
+            raise AssertionError(f"{kind} n={n} D={d}: the {plan.route} "
+                                 "route differs from the planned launch")
+        row[f"{plan.route}_ms"] = graph_ms(call, reps=reps)
     return row
 
 
@@ -494,8 +579,39 @@ def combine_checks(torch, dev):
             check_combine(torch, dev, kind, PATH_D[0], dt, exact=False, n=n)
             check_combine(torch, dev, kind, PATH_D[0], dt, exact=True,
                           time_it=False, n=n)
+    for kind, dt in (("quantized_combine", "int8"),
+                     ("packed_sign_combine", "uint8")):
+        for n, d in EDGE_SHAPES:
+            check_combine(torch, dev, kind, d, dt, exact=True,
+                          time_it=False, n=n)
+        check_misaligned_combine(torch, dev, kind, 2, 1 << 20)
     check_width_mismatch(torch, dev)
     return rows
+
+
+def check_misaligned_combine(torch, dev, kind, n, d):
+    """A payload one byte past a 16-byte boundary is planned onto the
+    generic kernels and gives the plain version's and the aligned
+    launch's bits."""
+    from repro_torch.kernels.coded_combine import kernel, ops, ref
+    x, scales, w = _combine_inputs(torch, dev, kind, d, "int8", True,
+                                   seed=11, n=n)
+    flat = torch.empty(x.numel() + 16, dtype=torch.uint8, device=dev)
+    q = flat[1:1 + x.numel()].view(x.dtype).view(x.shape)
+    q.copy_(x)
+    short = kind.split("_")[0]
+    plan = kernel._plan_for(short, q, d)
+    extra = (d,) if kind == "packed_sign_combine" else ()
+    fn, plain = getattr(ops, kind), getattr(ref, kind)
+    out = fn(q, scales, w, *extra)
+    same = (torch.equal(out, fn(x, scales, w, *extra))
+            and torch.equal(out, plain(q, scales, w, *extra)))
+    if plan.route != "generic" or not same:
+        raise AssertionError(f"{kind} n={n} D={d} one byte off: plan "
+                             f"{plan}, equal to the plain version and the "
+                             f"aligned launch: {same}")
+    _say("kernel_check", name=f"{kind} n={n} D={d} payload one byte off "
+         "16 takes the generic route", plan=plan._asdict(), ok=True)
 
 
 def check_width_mismatch(torch, dev):
@@ -1971,9 +2087,10 @@ def benchmarks(torch, dev, card):
 def plans(torch, dev):
     """The launch plans the redesigned kernels chose at the path shapes:
     K1's and K6's threads a row, K2's chunks, K7's strips, clusters and
-    CTAs."""
+    CTAs, K4's and K5's routes, tiles and stages."""
     from repro_torch.kernels import _launch
     from repro_torch.kernels.batched_alpha import kernel as ba_k
+    from repro_torch.kernels.coded_combine import kernel as cc_k
     from repro_torch.kernels.decode_attention import kernel as da_k
     from repro_torch.kernels.rmsnorm import kernel as rn_k
     from repro_torch.kernels.spectral_matvec import kernel as sm_k
@@ -1997,8 +2114,15 @@ def plans(torch, dev):
           for B, R, k, bv in ((1, 2184, 30, 1), (1, 2184, 30, 8),
                               (1, 2184, 1000, 1), (1, 2184, 1000, 8),
                               (12, 2184, 30, 1), (12, 2184, 1000, 1))}
+    cc = {f"{kind} n={n} D={PATH_D[0]}":
+          cc_k.plan_combine(kind, n, PATH_D[0], 1, sms)._asdict()
+          for kind, ns in (("quantized", (1, 2, 3, 4)), ("packed", (1, 2, 4)))
+          for n in ns}
+    cc.update({f"{kind} n=4 D={PATH_D[1]}":
+               cc_k.plan_combine(kind, 4, PATH_D[1], 1, sms)._asdict()
+               for kind in ("quantized", "packed")})
     _say("plans", sms=sms, rmsnorm=rn, fused_error=ba,
-         decode_attention=da, gram_matvec=sm)
+         decode_attention=da, gram_matvec=sm, combine=cc)
 
 
 def main() -> int:

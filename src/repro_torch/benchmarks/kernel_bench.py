@@ -12,8 +12,11 @@ the device and
   plain PyTorch version at the tolerance, then times the kernel, the
   plain version and the library call where one PyTorch call computes
   the same function (``F.rms_norm``, SDPA, ``torch.mv``,
-  ``x.T @ (x @ v)``) with ``launch.timing.graph_ms`` (CUDA-graph
-  replays once the clock has risen), and reports the bound -- bytes
+  ``x.T @ (x @ v)``, K4's one-row ``torch.mul``) with
+  ``launch.timing.graph_ms`` (CUDA-graph replays once the clock has
+  risen), and one PyTorch call that moves the same bytes where the row
+  has one (``copy_ms``: K4's int8-to-float32 copy of its one row, K5's
+  output written alone), and reports the bound -- bytes
   over 3.35 TB/s or operations over the dtype's peak, the larger --
   and the kernel's share of it;
 * on the CPU: holds the plain version against a float64 oracle and
@@ -56,6 +59,7 @@ class Case:
     nbytes: int                   # inputs read once, outputs written once
     flops: int
     scaled: bool = False          # compare after dividing by max(1, |ref|)
+    copy: Optional[Thunk] = None  # one PyTorch call moving the same bytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,14 +147,15 @@ COMBINE_D = 104_857_600       # the stacked wi_gate leaf of granite-3-8b
 COMBINE_D_CPU = 1 << 20
 
 
-def _mk_combine(kind):
+def _mk_combine(kind, n=COMBINE_ROWS):
     def make(dev):
         from repro_torch.kernels.coded_combine import ops, ref
-        n = COMBINE_ROWS
         d = COMBINE_D if _card(dev) else COMBINE_D_CPU
         g = _gen(dev, 7)
         w = torch.rand(n, generator=g, device=dev) * 2
-        w[n // 2] = 0.0                       # a straggler's zero weight
+        o, copy = torch.empty(d, device=dev), None
+        if n > 1:
+            w[n // 2] = 0.0                   # a straggler's zero weight
         scales = torch.rand(n, generator=g, device=dev) + 0.01
         if kind == "coded_combine":
             x = torch.randn(n, d, generator=g, device=dev)
@@ -162,12 +167,18 @@ def _mk_combine(kind):
             x = torch.randint(-127, 128, (n, d), generator=g, device=dev,
                               dtype=torch.int8)
             args, dtype, library = (x, scales, w), "int8", None
+            if n == 1:   # an int8 row times a 0-dim float32: u * q
+                u0 = w[0] * scales[0]
+                library = lambda: torch.mul(x[0], u0)  # noqa: E731
+                # ... and the int8-to-float32 copy of that row
+                copy = lambda: o.copy_(x[0])  # noqa: E731
             oracle = lambda: torch.from_numpy(  # noqa: E731
                 ref.quantized_combine_np(*(a.cpu().numpy() for a in args)))
         else:
             x = torch.randint(0, 256, (n, (d + 7) // 8), generator=g,
                               device=dev, dtype=torch.uint8)
             args, dtype, library = (x, scales, w, d), "uint8", None
+            copy = o.zero_            # the output written alone
             oracle = lambda: torch.from_numpy(  # noqa: E731
                 ref.packed_sign_combine_np(x.cpu().numpy(),
                                            scales.cpu().numpy(),
@@ -178,7 +189,7 @@ def _mk_combine(kind):
             kernel=lambda: fn(*args), plain=lambda: plain(*args),
             oracle=oracle, library=library,
             nbytes=x.numel() * x.element_size() + 4 * d + 8 * n,
-            flops=2 * n * d)
+            flops=2 * n * d, copy=copy)
     return make
 
 
@@ -286,6 +297,15 @@ REGISTRY: List[KernelSpec] = [
                KERNEL_FILES + "coded_combine/kernel.py:158",
                _mk_combine("packed_sign_combine"), rtol=2e-5, atol=1e-3,
                reps=4),
+    # one row a rank: the streaming combine's chunk of 1, or W = m ranks
+    KernelSpec("quantized_combine_int8_row", "K4",
+               KERNEL_FILES + "coded_combine/kernel.py:91",
+               _mk_combine("quantized_combine", 1), rtol=2e-5, atol=1e-3,
+               reps=4),
+    KernelSpec("packed_sign_combine_row", "K5",
+               KERNEL_FILES + "coded_combine/kernel.py:158",
+               _mk_combine("packed_sign_combine", 1), rtol=2e-5, atol=1e-3,
+               reps=4),
     KernelSpec("fused_error_campaign", "K6",
                KERNEL_FILES + "batched_alpha/kernel.py:58",
                _mk_fused_error(30, 2184), rtol=2e-5, atol=2e-5),
@@ -352,8 +372,8 @@ def run_spec(spec: KernelSpec, dev: torch.device) -> dict:
         us, plain_us = (_host_us(case.kernel, spec.reps),
                         _host_us(case.plain, spec.reps))
         row.update(max_abs_err=0.0, us_per_call=us, plain_us=plain_us,
-                   ms=None, plain_ms=None, library_ms=None, bound_ms=None,
-                   bound_by=None, bound_share=None,
+                   ms=None, plain_ms=None, library_ms=None, copy_ms=None,
+                   bound_ms=None, bound_by=None, bound_share=None,
                    derived=f"{256 / (us / 1e6):.0f}trials/s")
         return row
     t_bytes = case.nbytes / roofline.HBM_BW * 1e3
@@ -373,6 +393,8 @@ def run_spec(spec: KernelSpec, dev: torch.device) -> dict:
                    plain_ms=graph_ms(case.plain, reps=spec.reps),
                    library_ms=(None if case.library is None
                                else graph_ms(case.library, reps=spec.reps)),
+                   copy_ms=(None if case.copy is None
+                            else graph_ms(case.copy, reps=spec.reps)),
                    us_per_call=ms * 1e3, bound_ms=bound, bound_by=by,
                    bound_share=bound / ms,
                    derived=f"{100 * bound / ms:.1f}% of bound")
@@ -380,7 +402,7 @@ def run_spec(spec: KernelSpec, dev: torch.device) -> dict:
         err = _check(spec, case, case.plain(), case.oracle())
         us = _host_us(case.plain, min(spec.reps, 5))
         row.update(max_abs_err=err, ms=None, plain_ms=None,
-                   library_ms=None, us_per_call=us, plain_us=us,
+                   library_ms=None, copy_ms=None, us_per_call=us, plain_us=us,
                    bound_ms=None, bound_by=None, bound_share=None,
                    derived=f"{case.nbytes / 1e9 / (us / 1e6):.1f}GB/s "
                            "(plain, host)")

@@ -100,7 +100,8 @@ def test_section_writes_valid_json_and_passes(sections, name):
                                              "K6", "K7a", "K7b", "engine"}
         # a CPU run gives no card figure
         assert all(r["ms"] is None and r["bound_share"] is None
-                   and r["bound_ms"] is None for r in rows)
+                   and r["bound_ms"] is None and r["copy_ms"] is None
+                   for r in rows)
     if name == "serve":
         acc = res["results"]["serve"]["acceptance"]
         assert acc["token_stream_bit_identical_at_p0"]

@@ -42,6 +42,7 @@ def test_kernel_spec_within_tolerance_on_the_card(cuda, spec):
         return
     assert row["ms"] > 0 and row["plain_ms"] > 0
     assert 0 < row["bound_ms"] and row["bound_share"] > 0
+    assert row["copy_ms"] is None or row["copy_ms"] > 0
 
 
 @pytest.mark.cuda

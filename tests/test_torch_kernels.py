@@ -203,6 +203,88 @@ def test_rmsnorm_row_plan_regimes(rows, d, itemsize, want):
     assert (p.vpt, p.tpr, p.rpc) == want
 
 
+# The launch plan of the int8 and packed-sign combines: the bulk route's
+# tile, stages and CTAs, the lane route's CTAs, or the generic kernels --
+# from the shape, the alignment and the SM count only.
+
+from repro_torch.kernels.coded_combine import kernel as cc_k
+
+
+@pytest.mark.parametrize("kind", cc_k.KINDS)
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 16])
+@pytest.mark.parametrize("d", [1, 7, 9, 130, 8192, 1_000_003, 104_857_600])
+def test_combine_plan(kind, n, d):
+    """Whole 16-byte tiles that with the tail cover D exactly, shared
+    memory within a CTA's and an SM's limit, the bulk route from
+    BULK_MIN_D positions on and the lane route below, the generic route
+    for rows that are not whole aligned vectors."""
+    _plan_is_pure(cc_k.plan_combine, ["kind", "n", "d", "itemsize", "sms"])
+    sms = cc_k.H100_SMS
+    p = cc_k.plan_combine(kind, n, d, 1, sms)
+    assert p == cc_k.plan_combine(kind, n, d, 1, sms)
+    assert p.ctas >= 1
+    row_bytes = cc_k.payload_bytes(kind, d)
+    assert cc_k.plan_combine(kind, n, d, 1, sms, aligned=False).route \
+        == "generic"
+    if row_bytes % 16:
+        assert p.route == "generic"
+    elif kind == "packed" and d < cc_k.PACKED_LANE_MIN_D:
+        assert p.route == "generic"
+    else:
+        assert p.route == ("bulk" if d >= cc_k.BULK_MIN_D else "lane")
+    if p.route != "bulk":
+        assert (p.tile, p.stages, p.smem_bytes) == (0, 0, 0)
+        assert p.ctas <= (cc_k.GENERIC_MAX_CTAS if p.route == "generic"
+                          else cc_k.LANE_CTAS_PER_SM * sms)
+        return
+    per = cc_k.positions_per_byte(kind)
+    tile_in = p.tile // per
+    assert p.tile in cc_k.BULK_TILES and tile_in % 16 == 0
+    assert (4 * p.tile) % 16 == 0                # the output tile's bytes
+    assert cc_k.BULK_MIN_STAGES <= p.stages <= cc_k.BULK_MAX_STAGES
+    assert p.smem_bytes == cc_k.bulk_smem(n, p.tile, p.stages, kind)
+    assert p.smem_bytes <= cc_k.MAX_SMEM == 232_448
+    per_sm = -(-p.ctas // sms)
+    assert per_sm * (p.smem_bytes + cc_k.CTA_RESERVED) <= cc_k.SM_SMEM
+    tiles = -(-row_bytes // tile_in)
+    assert p.ctas <= min(tiles, max(cc_k.BULK_CTAS_PER_SM) * sms)
+    tail_bytes = row_bytes - (tiles - 1) * tile_in
+    assert 0 < tail_bytes <= tile_in and tail_bytes % 16 == 0
+    tail = d - (tiles - 1) * p.tile              # output positions
+    assert 0 < tail <= p.tile and (tiles - 1) * p.tile + tail == d
+
+
+@pytest.mark.parametrize("kind,n,d,want", [
+    # one int8 row of the wi_gate leaf: 2 CTAs an SM of 6 stages of 8 KB
+    ("quantized", 1, 104_857_600, ("bulk", 264, 8192, 6, 114_784)),
+    ("quantized", 3, 104_857_600, ("bulk", 264, 8192, 2, 114_720)),
+    ("quantized", 4, 104_857_600, ("bulk", 264, 4096, 5, 114_768)),
+    ("quantized", 16, 1 << 24, ("bulk", 264, 2048, 3, 114_736)),
+    ("packed", 1, 104_857_600, ("bulk", 264, 8192, 8, 73_856)),
+    ("packed", 4, 104_857_600, ("bulk", 264, 8192, 8, 98_432)),
+    # below 2^24 positions, the lane route: the norm scales' 8192
+    ("quantized", 4, 8192, ("lane", 2, 0, 0, 0)),
+    ("packed", 4, 1 << 20, ("lane", 128, 0, 0, 0)),
+    ("packed", 4, 8192, ("generic", 4, 0, 0, 0)),   # below 2^20 packed
+    ("quantized", 1, (1 << 24) - 16, ("lane", 1056, 0, 0, 0)),
+    ("quantized", 200, 1 << 24, ("lane", 1056, 0, 0, 0)),  # rows too many
+    ("quantized", 4, 1_000_003, ("generic", 2112, 0, 0, 0)),
+    ("quantized", 4, 8191, ("generic", 32, 0, 0, 0)),
+    ("packed", 2, 1_000_003, ("generic", 489, 0, 0, 0))])
+def test_combine_plan_regimes(kind, n, d, want):
+    assert tuple(cc_k.plan_combine(kind, n, d, 1)) == want
+
+
+@pytest.mark.parametrize("d", [8192, 8191, 104_857_600])
+def test_combine_plan_float32_payload_is_generic(d):
+    """quantized_combine's float32 payload keeps the generic kernels, on
+    16-byte vectors where the rows are whole aligned vectors."""
+    p = cc_k.plan_combine("quantized", 4, d, 4)
+    vec = d % 4 == 0
+    assert p.route == "generic" and p.ctas == min(
+        -(-(d // 4 if vec else d) // 256), cc_k.GENERIC_MAX_CTAS)
+
+
 # -------------------------------------------------- decode attention
 
 def _da_inputs(jnp, rng, B, H, KVH, S, Dh, dtype):
@@ -841,6 +923,8 @@ def _card_combine_case(cuda, kind, n, D, dtype, exact):
              else rng.normal(size=(n, D)).astype(np.float32))
         s = rng.uniform(0.1, 2.0, size=n).astype(np.float32)
         w = rng.normal(size=n).astype(np.float32)
+    if n == 1 and w[0] == 0:   # one row: a live one
+        w[0] = 0.5
     qt = torch.tensor(q, device=cuda)
     if kind == "coded":
         qt = qt.to(getattr(torch, dtype))
@@ -861,7 +945,17 @@ def _card_combine_case(cuda, kind, n, D, dtype, exact):
                                         ("quantized", "float32"),
                                         ("packed", "uint8")])
 @pytest.mark.parametrize("n,D", [(4, 8192), (4, 1), (4, 7), (3, 9),
-                                 (4, 1_000_003), (16, 4096), (1, 130)])
+                                 (4, 1_000_003), (16, 4096), (1, 130),
+                                 # rows and tails on each route: generic
+                                 # (1,000,003 and 3 * 4096 + 5 are no
+                                 # whole int8 or packed vectors), lane
+                                 # (int8 3 * 4096 + 16; packed 1,048,701
+                                 # ends 3 short of a whole float4) and
+                                 # the bulk route's short last tile (16
+                                 # int8 positions past 2^24; 125 packed)
+                                 (1, 1_000_003), (2, 3 * 4096 + 5),
+                                 (1, 3 * 4096 + 16), (2, 1_048_701),
+                                 (1, (1 << 24) + 16), (2, 16_777_341)])
 @pytest.mark.parametrize("exact", [False, True])
 def test_combine_kernels_equal_plain_on_card(cuda, kind, dtype, n, D,
                                              exact):
@@ -872,11 +966,79 @@ def test_combine_kernels_equal_plain_on_card(cuda, kind, dtype, n, D,
     assert cc_ops.launches[op.__name__] == before + 1
     assert torch.equal(out, plain(*args))
     if exact and kind != "coded":
-        host = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a
-                for a in args]
-        oracle = (cc_r.quantized_combine_np(*host) if kind == "quantized"
-                  else cc_r.packed_sign_combine_np(*host))
-        np.testing.assert_array_equal(out.cpu().numpy(), oracle)
+        _assert_oracle(kind, args, out)
+
+
+def _assert_oracle(kind, args, out):
+    host = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    oracle = (cc_r.quantized_combine_np(*host) if kind == "quantized"
+              else cc_r.packed_sign_combine_np(*host))
+    np.testing.assert_array_equal(out.cpu().numpy(), oracle)
+
+
+def _offset_view(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of t that starts ``offset`` bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8,
+                       device=t.device)
+    view = flat[offset:offset + t.numel() * t.element_size()].view(
+        t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype", [("quantized", "int8"),
+                                        ("packed", "uint8")])
+@pytest.mark.parametrize("n,D", [(2, 1 << 20), (4, 3 << 20),
+                                 (1, 1 << 24)])
+def test_combine_misaligned_payload_takes_generic_route_on_card(
+        cuda, kind, dtype, n, D):
+    """A payload whose rows start off a 16-byte boundary is planned onto
+    the generic kernels before the launch, and gives the plain version's
+    and the aligned launch's bits (the lane and the bulk route)."""
+    args, op, plain = _card_combine_case(cuda, kind, n, D, dtype, True)
+    q = _offset_view(args[0], 1)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    assert cc_k.plan_combine(kind, n, D, 1).route != "generic"
+    assert cc_k._plan_for(kind, q, D).route == "generic"
+    out = op(q, *args[1:])
+    aligned = op(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain(q, *args[1:]))
+    assert torch.equal(out, aligned)
+    _assert_oracle(kind, args, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype", [("quantized", "int8"),
+                                        ("packed", "uint8")])
+@pytest.mark.parametrize("n,D", [(1, 1_048_701), (4, 8192),
+                                 (2, 3 * 4096 + 5), (1, (1 << 24) + 16),
+                                 (2, 16_777_341)])
+def test_combine_repeats_in_graphs_on_card(cuda, kind, dtype, n, D):
+    """Two replays of a captured combine give one eager launch's bits, and
+    so do 20 launches back to back."""
+    args, op, plain = _card_combine_case(cuda, kind, n, D, dtype, False)
+    want = op(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        op(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = op(*args)
+    for _ in range(2):
+        captured.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(want, captured)
+    burst = [op(*args) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(want, o) for o in burst)
+    assert torch.equal(want, plain(*args))
 
 
 # ------------------------------------------------------------- build

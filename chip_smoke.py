@@ -63,6 +63,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    float32 logits than twice the plain version's bf16 error. Then the
    pool step's device time by kernel family
    (``repro_torch.launch.step_profile --full-config``).
+4a. Long sequences (``long_attention``, ``prefill_32k``): one
+   granite-width attention layer (H = 32, KVH = 8, Dh = 128, bf16,
+   B = 1) forward and backward, at 4,096 tokens the blockwise output and
+   q, k, v gradients within ``BF16_TOL`` of the plain version's (the
+   whole-score softmax), at 8,192 and 16,384 the peak memory above the
+   inputs, the 16k one under 2.5 times the 8k one; then granite-3-8b at
+   full config prefills one 32,768-token sequence through
+   ``coded_train.make_prefill_step`` (finite logits; seconds and peak
+   bytes printed) and ``forward_hidden``'s first 4,096 positions are
+   held to a 4,096-token run's within ``BF16_TOL``.
 5. The training path: ``repro_torch.launch.train.main`` at granite-3-8b's
    full width with 2 layers (bf16 activations, float32 parameters and
    AdamW at lr 1e-4), m = 4 machines, expander d = 2, Bernoulli
@@ -71,8 +81,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    sign_packed, and the manual collective. Launch counts are zeroed
    before each run and read after: one combine launch per parameter
    leaf and step (12 leaves: the LM head is untied) on the run that uses
-   that combine and none elsewhere, and 5 rmsnorm launches per forward
-   pass. The driver asserts that the loss decreased. Each run is
+   that combine and none elsewhere, and 9 rmsnorm launches per forward
+   and backward (the forward's 5, and the 4 of the two layers the
+   backward recomputes: ``models.model`` rematerialises each layer).
+   The driver asserts that the loss decreased. Each run is
    repeated through the plain versions (``_FORCE = "ref"``) and the two
    loss streams must agree to ``LOSS_RTOL``. Then one float32 SGD step:
    the manual collective through coded_combine against the dedup path
@@ -83,8 +95,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    missed heartbeats and the code is re-drawn over 3 survivors
    (quantized_combine on 4 blocks, then on 3): CI's five conditions on
    the event log, the log equal to the summary, one quantized_combine
-   launch per leaf and step across both generations, 5 rmsnorm launches
-   per forward, the plain run's loss stream within ``LOSS_RTOL`` and
+   launch per leaf and step across both generations, 9 rmsnorm launches
+   per block's forward and backward, the plain run's loss stream within
+   ``LOSS_RTOL`` and
    ``rebuild_s`` printed. Then the scheme zoo and adaptive decoding: the
    affine plane AG(2,2) (``--scheme bibd --replication 3 --machines 6``,
    n = 4 blocks) under sign_packed, and cyclic-MDS under a Markov
@@ -92,14 +105,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    printed), each against its plain run. Then the coding runtime at
    m = 6552 with ``device="cuda"`` (its debias batch through the torch
    propagator) and ``device="cpu"``: equal scales. Each phase's seconds
-   are printed.
+   are printed. Right after the four runs, ``remat``: granite-3-8b at
+   full width in float32, ``train_loss`` forward and backward over one
+   4,096-token sequence at 2 and 4 layers with the model's
+   rematerialisation on and off (``M._REMAT``): the peak above the
+   parameters and their preallocated gradients must grow per added
+   layer at most half as fast with remat as without; the line also
+   carries the dedup run's ms a step and peak.
 5a. The distributed runtime (``distributed``), at the training path's
    width (granite-3-8b, 2 layers, ``DIST_ARGS``: 12 steps, m = 4). On one
    ``nccl`` rank in process: the manual collective materialising, then
    streaming with chunks of 1 and 2 machines, then int8 and sign_packed
    streaming with chunks of 1 (counts zeroed before each run and read
-   after: one combine launch a leaf and chunk, 5 rmsnorm launches a
-   machine's forward); the streaming loss streams within rtol 2e-4 /
+   after: one combine launch a leaf and chunk, 9 rmsnorm launches a
+   machine's forward and backward); the streaming loss streams within
+   rtol 2e-4 /
    atol 2e-5 of the materialising one (the reference's reassociation
    tolerance) and their peak ``max_memory_allocated`` strictly under
    its; one SGD step's combined gradient, streaming against
@@ -107,7 +127,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    path with ``FSDP`` at one rank and without, bit for bit (deterministic
    algorithms on). Then two ``gloo`` ranks spawned on the one card
    (machines [0, 2) and [2, 4), K3 on each, the sum through gloo): their
-   loss stream within the same tolerance of the one-rank run. The
+   loss stream within the same tolerance of the one-rank run; and, in
+   the same spawn, chaos on the dedup path (``--chaos kill:1@3``, no
+   sampled stragglers, 8 steps: 4 blocks split 2 a rank, then 3 kept
+   whole on both): the ``chaos`` object (but ``rebuild_s``) equal to a
+   one-process run's, the losses within rtol 1e-4, 9 rmsnorm launches a
+   step on each rank. The
    ``distributed`` line prints ms a step, peak GB, all_reduce bytes a
    step and launch counts per run.
 5b. The other families at full width (``families``): deepseek-moe-16b
@@ -659,13 +684,14 @@ def _run_train(torch, cfg, extra, force, args=TRAIN_ARGS):
 
 def train_runs(torch, dev):
     """The four training runs, each through the kernels and then through
-    the plain versions; returns the kernel runs' launch counts."""
+    the plain versions; returns the kernel runs' launch counts and the
+    dedup run's ms a step and peak."""
     from repro_torch.configs import get_config
     from repro_torch.models.convert import param_shapes
     cfg = get_config("granite-3-8b").with_overrides(n_layers=2)
     n_leaves = len(param_shapes(cfg))   # one combine launch per leaf
     steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
-    totals = {}
+    totals, dedup = {}, None
     for label, extra in TRAIN_RUNS:
         s, counts, wall, peak = _run_train(torch, cfg, extra, None)
         manual = "manual" in extra
@@ -673,7 +699,8 @@ def train_runs(torch, dev):
             if "--compress" in extra else "none"
         rows = 4   # n blocks on the dedup path, m machines on the manual
         forwards = rows if (manual or codec != "none") else 1
-        want = {"rmsnorm": 5 * forwards * steps, "decode_attention": 0,
+        want = {"rmsnorm": _train_norms(cfg) * forwards * steps,
+                "decode_attention": 0,
                 "coded_combine": n_leaves * steps if manual else 0,
                 "quantized_combine": (n_leaves * steps
                                       if codec == "int8" else 0),
@@ -696,7 +723,10 @@ def train_runs(torch, dev):
              wall_s=wall, plain_wall_s=rwall, peak_mem_gb=peak / 1e9,
              comm_bytes_per_step=s["comm_bytes_per_step"],
              decode_calls=s["decode_calls"])
-    return totals
+        if label == "dedup none":
+            dedup = {"ms_per_step": s["loop_s"] / steps * 1e3,
+                     "peak_mem_gb": peak / 1e9}
+    return totals, dedup
 
 
 def _loss_gap(label, s, r, steps):
@@ -748,7 +778,8 @@ def elastic_run(torch, dev):
         raise AssertionError(f"elastic: chaos summary {got}")
     at = chaos["reassignments"][0]["step"]
     rows = 4 * at + ELASTIC_ROWS * (steps - at)   # per-block forwards
-    want = {"rmsnorm": 5 * rows, "decode_attention": 0, "coded_combine": 0,
+    want = {"rmsnorm": _train_norms(cfg) * rows, "decode_attention": 0,
+            "coded_combine": 0,
             "quantized_combine": n_leaves * steps,
             "packed_sign_combine": 0}
     if counts != want:
@@ -787,7 +818,8 @@ def zoo_runs(torch, dev):
         s, counts, wall, peak = _run_train(torch, cfg, extra, None)
         packed = "sign_packed" in extra
         forwards = 4 if packed else 1      # both schemes have n = 4 blocks
-        want = {"rmsnorm": 5 * forwards * steps, "decode_attention": 0,
+        want = {"rmsnorm": _train_norms(cfg) * forwards * steps,
+                "decode_attention": 0,
                 "coded_combine": 0, "quantized_combine": 0,
                 "packed_sign_combine": n_leaves * steps if packed else 0}
         if counts != want:
@@ -991,6 +1023,219 @@ def teacher_forced(torch, dev, steps=4):
 # of AdamW at lr 1e-4, as the granite runs. Depth is cut where float32
 # parameters, AdamW's two moments, the gradients and the activations
 # autograd keeps would pass ~60 GB (PERF.md section 4 has the reckoning).
+# ---------------------------------------------------------------------------
+# Long sequences: blockwise attention (memory linear in S) and the
+# rematerialised training forward
+# ---------------------------------------------------------------------------
+
+# granite-3-8b's attention layer: B = 1, H = 32, KVH = 8, Dh = 128, bf16
+LONG_ATTN = dict(B=1, H=32, KVH=8, Dh=128)
+LONG_CHECK_S = 4096                 # blockwise against the plain version
+LONG_MEM_S = (8192, 16384)          # peaks above the inputs
+LONG_PEAK_RATIO = 2.5               # the 16k peak under 2.5x the 8k one
+# blockwise against the plain version in bf16, forward and gradients:
+# |got - want| <= BF16_TOL (max(1, max |want|) + |want|)
+BF16_TOL = 3e-2
+PREFILL_S, PREFILL_PREFIX = 32768, 4096
+REMAT_S = 4096                      # tokens of the remat measurement
+REMAT_LAYERS = (2, 4)
+REMAT_MAX_SHARE = 0.5   # the per-layer peak increment, remat / no remat
+
+
+def _attn_inputs(torch, dev, S, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    B, H, KVH, Dh = (LONG_ATTN[k] for k in ("B", "H", "KVH", "Dh"))
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_(True)
+    return r(B, S, H, Dh), r(B, S, KVH, Dh), r(B, S, KVH, Dh), \
+        torch.randn(B, S, H, Dh, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+
+
+def long_attention(torch, dev):
+    """One granite-width attention layer (bf16), forward and backward:
+    at 4,096 tokens the blockwise output and q, k, v gradients against
+    the plain version's (``attention_ref``, whole scores) within
+    ``BF16_TOL``; at 8,192 and 16,384 the peak memory above the inputs,
+    the 16k peak under ``LONG_PEAK_RATIO`` times the 8k one (linear, not
+    quadratic, in S)."""
+    from repro_torch.models import attention as A
+    q, k, v, d_out = _attn_inputs(torch, dev, LONG_CHECK_S, 0)
+    res = {}
+    for name, fn in (("blockwise", A.blockwise_attention),
+                     ("plain", A.attention_ref)):
+        q.grad = k.grad = v.grad = None
+        out = fn(q, k, v, causal=True, window=None)
+        out.backward(d_out)
+        res[name] = [out.detach(), q.grad, k.grad, v.grad]
+    errs = {}
+    for what, got, want in zip(("out", "dq", "dk", "dv"), res["blockwise"],
+                               res["plain"]):
+        got, want = got.float(), want.float()
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs()
+        if not bool((err <= BF16_TOL * (scale + want.abs())).all()):
+            raise AssertionError(f"long_attention S={LONG_CHECK_S} {what}: "
+                                 f"max |err| {err.max().item()} beyond "
+                                 f"{BF16_TOL} (scale {scale})")
+        errs[what] = err.max().item()
+    del q, k, v, d_out, res
+    peaks, secs = {}, {}
+    for S in LONG_MEM_S:
+        _free(torch)
+        q, k, v, d_out = _attn_inputs(torch, dev, S, 1)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = A.blockwise_attention(q, k, v, causal=True)
+        out.backward(d_out)
+        torch.cuda.synchronize()
+        secs[S] = time.perf_counter() - t0
+        peaks[S] = torch.cuda.max_memory_allocated() - base
+        del q, k, v, d_out, out
+    ratio = peaks[LONG_MEM_S[1]] / peaks[LONG_MEM_S[0]]
+    if not ratio < LONG_PEAK_RATIO:
+        raise AssertionError(f"long_attention: the {LONG_MEM_S[1]} peak is "
+                             f"{ratio:.3f}x the {LONG_MEM_S[0]} one "
+                             f"(>= {LONG_PEAK_RATIO})")
+    _free(torch)
+    _say("long_attention", **LONG_ATTN, dtype="bfloat16",
+         check_s=LONG_CHECK_S, max_abs_err=errs, tol=BF16_TOL,
+         peak_bytes_above_inputs={str(S): peaks[S] for S in LONG_MEM_S},
+         peak_ratio=ratio, fwd_bwd_s={str(S): secs[S] for S in LONG_MEM_S})
+
+
+def prefill_32k(torch, dev):
+    """granite-3-8b at full config (40 layers, bf16 weights) prefills one
+    32,768-token sequence through ``coded_train.make_prefill_step``:
+    finite logits, its seconds and peak bytes; then the first 4,096
+    positions of its ``forward_hidden`` output against a 4,096-token
+    run's, within ``BF16_TOL`` (causal attention makes them the same
+    function)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.dist import coded_train
+    from repro_torch.models import model as M
+    cfg = get_config("granite-3-8b")
+    _free(torch)
+    params = M.cast_block_weights(M.init_params(cfg, seed=0, device=dev),
+                                  cfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PREFILL_S))).to(dev)
+    # the prefill's own hidden states, kept by a wrapper around
+    # forward_hidden (one 32k pass, ~50 s, instead of two)
+    hidden = []
+    forward_hidden = M.forward_hidden
+    M.forward_hidden = lambda *a, **k: hidden.append(
+        forward_hidden(*a, **k)) or hidden[-1]
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad():
+            logits = coded_train.make_prefill_step(cfg)(params,
+                                                        {"tokens": tokens})
+        torch.cuda.synchronize()
+    finally:
+        M.forward_hidden = forward_hidden
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (1, cfg.padded_vocab()) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill_32k: logits {tuple(logits.shape)}, "
+                             "not all finite")
+    (long,) = hidden
+    long = long[:, :PREFILL_PREFIX]
+    with torch.no_grad():
+        short = M.forward_hidden(params, tokens[:, :PREFILL_PREFIX], cfg)
+    long, short = long.float(), short.float()
+    scale = max(1.0, short.abs().max().item())
+    err = (long - short).abs()
+    if not bool((err <= BF16_TOL * (scale + short.abs())).all()):
+        raise AssertionError(f"prefill_32k: the first {PREFILL_PREFIX} "
+                             f"positions differ from a {PREFILL_PREFIX}-"
+                             f"token run by {err.max().item()}")
+    _say("prefill_32k", arch=cfg.name, n_layers=cfg.n_layers,
+         dtype=cfg.dtype, tokens=PREFILL_S, seconds=secs,
+         peak_bytes=peak, peak_bytes_above_weights=peak - weights,
+         prefix=PREFILL_PREFIX, prefix_max_abs_err=err.max().item(),
+         prefix_bitwise=bool(torch.equal(long, short)), tol=BF16_TOL)
+    del params, logits, long, short
+    _free(torch)
+
+
+def remat(torch, dev, dedup):
+    """granite-3-8b at full width in float32: ``train_loss`` forward and
+    backward over one 4,096-token sequence at 2 and 4 layers, with the
+    model's rematerialisation on and off (``M._REMAT``). Peaks above the
+    parameters and their preallocated gradients; the increment per added
+    layer with remat at most ``REMAT_MAX_SHARE`` of the one without.
+    ``dedup`` is the train phase's dedup run (ms a step, peak)."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    base_cfg = get_config("granite-3-8b").with_overrides(dtype="float32")
+    toks = np.random.default_rng(0).integers(0, base_cfg.vocab_size,
+                                             (1, REMAT_S + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+    peaks, secs, losses = {}, {}, {}
+    for L in REMAT_LAYERS:
+        cfg = base_cfg.with_overrides(n_layers=L)
+        _free(torch)
+        params = M.init_params(cfg, seed=0, device=dev)
+        for p in T.leaves(params):
+            p.requires_grad_(True)
+            p.grad = torch.zeros_like(p)
+        for on in (True, False):
+            for p in T.leaves(params):
+                p.grad.zero_()
+            M._REMAT = on
+            try:
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                loss = M.train_loss(params, batch, cfg)
+                loss.backward()
+                torch.cuda.synchronize()
+                secs[(L, on)] = time.perf_counter() - t0
+                peaks[(L, on)] = torch.cuda.max_memory_allocated() - base
+                losses[(L, on)] = loss.item()
+            finally:
+                M._REMAT = True
+            del loss
+        del params
+    _free(torch)
+    lo, hi = REMAT_LAYERS
+    inc = {on: (peaks[(hi, on)] - peaks[(lo, on)]) / (hi - lo)
+           for on in (True, False)}
+    for L in REMAT_LAYERS:
+        # the same forward arithmetic either way
+        if abs(losses[(L, True)] - losses[(L, False)]) > \
+                1e-6 * abs(losses[(L, False)]):
+            raise AssertionError(f"remat: {L} layers, loss "
+                                 f"{losses[(L, True)]} with remat, "
+                                 f"{losses[(L, False)]} without")
+    if not inc[True] <= REMAT_MAX_SHARE * inc[False]:
+        raise AssertionError(f"remat: {inc[True]} bytes a layer with remat, "
+                             f"{inc[False]} without (> {REMAT_MAX_SHARE}x)")
+    _say("remat", arch=base_cfg.name, d_model=base_cfg.d_model,
+         dtype="float32", tokens=REMAT_S, layers=list(REMAT_LAYERS),
+         peak_bytes={f"{L} {'remat' if on else 'kept'}": v
+                     for (L, on), v in peaks.items()},
+         bytes_per_layer={"remat": inc[True], "kept": inc[False]},
+         share=inc[True] / inc[False],
+         fwd_bwd_s={f"{L} {'remat' if on else 'kept'}": v
+                    for (L, on), v in secs.items()},
+         losses={f"{L} {'remat' if on else 'kept'}": v
+                 for (L, on), v in losses.items()},
+         dedup_ms_per_step=dedup["ms_per_step"],
+         dedup_peak_gb=dedup["peak_mem_gb"])
+
+
 FAMILY_TRAIN_ARGS = ["--steps", "6", "--seq-len", "256", "--block-size",
                      "4", "--machines", "4", "--scheme", "expander",
                      "--replication", "2", "--straggler-model",
@@ -1036,6 +1281,24 @@ def _norms(cfg, kind):
     return 2 * L + 1
 
 
+def _train_norms(cfg):
+    """rmsnorm launches of one training forward and backward (training
+    batches carry no audio source): the forward's, and again those of
+    every layer the backward recomputes (``models.model``'s remat: each
+    layer but the hybrid's shared attention; each xLSTM super-block,
+    and its mLSTM layers once more inside it)."""
+    at, L = cfg.arch_type, cfg.n_layers
+    if at == "hybrid":
+        again = L
+    elif at == "ssm":
+        r = cfg.slstm_ratio
+        n_super = L // (r + 1)
+        again = 2 * (r + 1) * n_super + 2 * r * n_super
+    else:
+        again = 2 * L
+    return _norms(cfg, "forward") + again
+
+
 def _attentions(cfg):
     """decode_attention launches of one decode step."""
     if cfg.arch_type == "hybrid":
@@ -1067,7 +1330,7 @@ def family_train(torch, arch, over):
     label = f"{arch} train"
     s, counts, wall, peak = _run_train(torch, cfg, [], None,
                                        FAMILY_TRAIN_ARGS)
-    want = {"rmsnorm": _norms(cfg, "forward") * steps,
+    want = {"rmsnorm": _train_norms(cfg) * steps,
             "decode_attention": 0, "coded_combine": 0,
             "quantized_combine": 0, "packed_sign_combine": 0}
     if counts != want:
@@ -1251,6 +1514,18 @@ DIST_RUNS = (("materialising", MANUAL),
              ("sign_packed stream chunk 1",
               MANUAL + ["--stream-chunk", "1", "--compress",
                         "sign_packed"]))
+# chaos on two gloo ranks against one process: kill machine 1 at step 3
+# on the dedup path, no sampled stragglers; 8 steps (the 3-block
+# generation trains 2; at 6 the training CLI's window-mean loss check
+# compares one step with one, and the elastic run's loss rises over its
+# first 6). In float32 activations: the ranks batch 2 blocks where one
+# process batches 4, and in bf16 the other GEMM shapes' rounding alone
+# moves the losses past the rtol of 1e-4 on the H100.
+CHAOS_STEPS = 8
+CHAOS_DTYPE = "float32"
+DIST_CHAOS_ARGS = (["--steps", str(CHAOS_STEPS)] + TRAIN_ARGS[2:]
+                   + ["--straggler-p", "0", "--chaos", "kill:1@3"])
+CHAOS_RTOL = 1e-4
 # streaming and two ranks only reassociate the combine: the reference's
 # float32 reassociation tolerance (tests/test_streaming.py:23)
 DIST_RTOL, DIST_ATOL = 2e-4, 2e-5
@@ -1265,12 +1540,13 @@ def _dist_counts(torch, cfg, extra, force=None, args=DIST_ARGS):
                                    for k in before}
 
 
-def _want_manual(n_leaves, rows, chunk, codec, steps):
+def _want_manual(n_leaves, norms, rows, chunk, codec, steps):
     """Launch counts of the manual collective over ``rows`` machines a
     rank: one combine a leaf and chunk (a chunk is all the rows when
-    materialising), 5 rmsnorm launches a machine's forward."""
+    materialising), ``norms`` rmsnorm launches a machine's forward and
+    backward."""
     combines = n_leaves * (rows // (chunk or rows)) * steps
-    return {"rmsnorm": 5 * rows * steps, "decode_attention": 0,
+    return {"rmsnorm": norms * rows * steps, "decode_attention": 0,
             "coded_combine": combines if codec == "none" else 0,
             "quantized_combine": combines if codec == "int8" else 0,
             "packed_sign_combine": (combines if codec == "sign_packed"
@@ -1384,9 +1660,11 @@ def _stream_params(torch, dev, cfg):
             "grad_max_abs": max(b.abs().max().item() for b in grads[None])}
 
 
-def _gloo_rank(rank, tmp, argv):
-    """One of two gloo ranks on the card: the training CLI, with its launch
-    counts, peak memory and wall time written to ``tmp``."""
+def _gloo_rank(rank, tmp, jobs):
+    """One of two gloo ranks on the card: the training CLI once for each
+    of ``jobs`` (label -> (argv, activation dtype)) at granite-3-8b's
+    width with 2 layers, with its launch counts, peak memory and wall
+    time written to ``tmp``."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
     import torch.distributed as dist
@@ -1400,23 +1678,73 @@ def _gloo_rank(rank, tmp, argv):
     dist.init_process_group("gloo", store=dist.FileStore(
         os.path.join(tmp, "store"), 2), rank=rank, world_size=2)
     try:
-        cfg = get_config("granite-3-8b").with_overrides(n_layers=2)
-        rn_ops.launches = da_ops.launches = 0
-        cc_ops.launches = dict.fromkeys(cc_ops.launches, 0)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        s = launch_train.main(argv, cfg=cfg)
-        wall = time.perf_counter() - t0
-        out = {"summary": s, "wall_s": wall,
-               "peak_bytes": torch.cuda.max_memory_allocated(),
-               "launches": {"rmsnorm": rn_ops.launches,
-                            "decode_attention": da_ops.launches,
-                            **cc_ops.launches},
-               "traffic": dict(pg.traffic)}
+        out = {}
+        for label, (argv, dtype) in jobs.items():
+            cfg = get_config("granite-3-8b").with_overrides(n_layers=2,
+                                                            dtype=dtype)
+            rn_ops.launches = da_ops.launches = 0
+            cc_ops.launches = dict.fromkeys(cc_ops.launches, 0)
+            traffic0 = dict(pg.traffic)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            s = launch_train.main(argv, cfg=cfg)
+            wall = time.perf_counter() - t0
+            out[label] = {"summary": s, "wall_s": wall,
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "launches": {"rmsnorm": rn_ops.launches,
+                                       "decode_attention": da_ops.launches,
+                                       **cc_ops.launches},
+                          "traffic": {k: pg.traffic[k] - traffic0[k]
+                                      for k in traffic0}}
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
         dist.destroy_process_group()
+
+
+def _gloo_chaos(ranks, one, cfg):
+    """The chaos run on two gloo ranks against the one-process run: the
+    same ``chaos`` object (but ``rebuild_s``), the losses within
+    ``CHAOS_RTOL``, one forward and backward of the rank's blocks a step
+    (no combine kernel on this path)."""
+    import numpy as np
+
+    def events(chaos):
+        return {**chaos, "reassignments": [
+            {k: v for k, v in r.items() if k != "rebuild_s"}
+            for r in chaos["reassignments"]]}
+    want = {"rmsnorm": _train_norms(cfg) * CHAOS_STEPS,
+            "decode_attention": 0, "coded_combine": 0,
+            "quantized_combine": 0, "packed_sign_combine": 0}
+    for r, out in enumerate(ranks):
+        s = out["summary"]
+        if s["world_size"] != 2 or events(s["chaos"]) != \
+                events(one["chaos"]):
+            raise AssertionError(f"gloo rank {r} chaos: {s['chaos']} != "
+                                 f"{one['chaos']}")
+        if out["launches"] != want:
+            raise AssertionError(f"gloo rank {r} chaos: launch counts "
+                                 f"{out['launches']} != {want}")
+        got, ref = np.asarray(s["losses"]), np.asarray(one["losses"])
+        if got.shape != ref.shape or not np.allclose(got, ref,
+                                                     rtol=CHAOS_RTOL,
+                                                     atol=0):
+            raise AssertionError(f"gloo rank {r} chaos: losses {got} vs "
+                                 f"one process {ref} (rtol {CHAOS_RTOL})")
+    s = ranks[0]["summary"]
+    return {"dtype": CHAOS_DTYPE,
+            "ms_per_step": s["loop_s"] / CHAOS_STEPS * 1e3,
+            "peak_gb": [o["peak_bytes"] / 1e9 for o in ranks],
+            "losses": s["losses"], "one_process_losses": one["losses"],
+            "loss_rel_gap": float(np.max(np.abs(
+                np.asarray(s["losses"]) - one["losses"])
+                / np.abs(one["losses"]))),
+            "rank1_losses": ranks[1]["summary"]["losses"],
+            "reassignments": s["chaos"]["reassignments"],
+            "launches": ranks[0]["launches"],
+            "all_reduce_bytes_per_step":
+                s["collective_bytes_per_step"]["all_reduce"]}
 
 
 def distributed(torch, dev, card):
@@ -1450,7 +1778,8 @@ def distributed(torch, dev, card):
                      if "--stream-chunk" in extra else 0)
             codec = (extra[extra.index("--compress") + 1]
                      if "--compress" in extra else "none")
-            want = _want_manual(n_leaves, 4, chunk, codec, DIST_STEPS)
+            want = _want_manual(n_leaves, _train_norms(cfg), 4, chunk,
+                                codec, DIST_STEPS)
             if counts != want:
                 raise AssertionError(f"distributed {label}: launch counts "
                                      f"{counts} != {want}")
@@ -1476,17 +1805,32 @@ def distributed(torch, dev, card):
     finally:
         dist.destroy_process_group()
     _free(torch)
-    # two gloo ranks sharing the card: machines [0, 2) and [2, 4)
+    # the one-process chaos run the two ranks' is held to
+    one, one_counts, _, _ = _run_train(
+        torch, cfg.with_overrides(dtype=CHAOS_DTYPE), [], None,
+        DIST_CHAOS_ARGS)
+    for k, v in one_counts.items():
+        totals[k] = totals.get(k, 0) + v
+    _free(torch)
+    # two gloo ranks sharing the card: machines [0, 2) and [2, 4) on the
+    # manual path; then chaos on the dedup path
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        mp.spawn(_gloo_rank, args=(tmp, DIST_ARGS + MANUAL), nprocs=2,
-                 join=True)
+        mp.spawn(_gloo_rank, args=(tmp, {
+            "manual": (DIST_ARGS + MANUAL, cfg.dtype),
+            "chaos": (DIST_CHAOS_ARGS, CHAOS_DTYPE)}), nprocs=2, join=True)
         spawn_s = time.perf_counter() - t0
-        ranks = []
+        outs = []
         for r in range(2):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-    want = _want_manual(n_leaves, 2, 0, "none", DIST_STEPS)
+                outs.append(json.load(f))
+    rows["two gloo ranks chaos"] = _gloo_chaos(
+        [o["chaos"] for o in outs], one, cfg)
+    for k, v in outs[0]["chaos"]["launches"].items():
+        totals[k] = totals.get(k, 0) + v
+    ranks = [o["manual"] for o in outs]
+    want = _want_manual(n_leaves, _train_norms(cfg), 2, 0, "none",
+                        DIST_STEPS)
     for r, out in enumerate(ranks):
         if out["launches"] != want:
             raise AssertionError(f"gloo rank {r}: launch counts "
@@ -2256,10 +2600,21 @@ def main() -> int:
     step_profile()
     phases["step_profile"] = time.perf_counter() - t0
 
+    # ---- long sequences: blockwise attention, the 32k prefill
+    t0 = time.perf_counter()
+    long_attention(torch, dev)
+    phases["long_attention"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prefill_32k(torch, dev)
+    phases["prefill_32k"] = time.perf_counter() - t0
+
     # ---- the training path: four runs, each zeroed before, read after
     t0 = time.perf_counter()
-    train_counts = train_runs(torch, dev)
+    train_counts, dedup = train_runs(torch, dev)
     phases["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    remat(torch, dev, dedup)
+    phases["remat"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     f32_manual_vs_autograd(torch, dev)
     phases["f32_step"] = time.perf_counter() - t0

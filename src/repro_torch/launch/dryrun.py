@@ -20,11 +20,11 @@ analyses. Here nothing is compiled or allocated:
 The step analysed for ``train`` is the port's dedup coded step at 16
 microbatches (the reference's ``REPRO_MICROBATCHES`` default), AdamW:
 each unique block once, weighted by v = A @ w. The reference's dry-run
-compiles its replicated step (every block d times) with its layer scan
-rematerialised under ``jax.checkpoint``; the port keeps activations and
-recomputes nothing, so its FLOPs are a different step's and not a copy
-of the reference's. ``prefill`` and ``decode`` are the port's
-``make_prefill_step`` and ``make_serve_step``. The collective term is
+compiles its replicated step (every block d times); both rematerialise
+each layer, and the port's flash-attention backward adds one Q K^T a
+tile (``launch.step_analysis``), so its FLOPs are a different step's
+and not a copy of the reference's. ``prefill`` and ``decode`` are the
+port's ``make_prefill_step`` and ``make_serve_step``. The collective term is
 the coded combine's payload, one gradient row per device.
 
 Usage:

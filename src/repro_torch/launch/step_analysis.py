@@ -21,10 +21,14 @@ The reference's ``n_while`` and ``max_trip`` (its loop-trip correction)
 have no counterpart: an eager step's loops run, and every iteration's
 ops dispatch and are counted, so they are left out.
 
-What differs from the reference's count is the step, not the counting.
-The reference rematerialises its layer scan under ``jax.checkpoint``
-(``repro/models/model.py:255``), so its backward recomputes each
-layer's forward; the port keeps activations, so its backward does not.
+Both steps rematerialise each layer (``jax.checkpoint`` in the
+reference, ``torch.utils.checkpoint`` here), and both recompute all of a
+layer's forward but the MLP's down projection (XLA drops it; torch's
+non-reentrant checkpoint stops at the last tensor the backward needs).
+What differs is the attention backward: the port's flash-attention
+backward recomputes each tile's Q K^T, where the reference's scan saves
+its scores, so a train step counts one more Q K^T product a tile.
+Prefill counts the same FLOPs and dot bytes as the reference.
 """
 
 from __future__ import annotations

@@ -64,9 +64,16 @@ ranks sum the partial combines (``coded_train``). Rank 0 prints.
 over machine chunks; ``--fsdp`` shards the parameters and AdamW's
 moments over the ranks (``dist.fsdp``), and checkpoints still hold the
 whole tensors, so they restore into either placement; ``--production-
-mesh`` runs only on the production layout's 256 ranks. Chaos stays on
-one process: a re-assignment changes m, and the ranks' machine blocks
-would have to change with it.
+mesh`` runs only on the production layout's 256 ranks. Under
+``--chaos`` every rank runs the same seeded injector and heartbeat
+monitor, so the masks, failure events and re-assignments are the same
+on every rank with nothing sent; rank 0 alone decodes w and broadcasts
+it, as without chaos. A re-assignment to m' machines re-splits the
+unique blocks and the compressed residual's rows over the ranks, or
+keeps them whole on every rank when the m' blocks do not split over W
+(``process_group.block_rows_split``, the reference's divisibility
+fallback); only the starting m must be a multiple of W. Rank 0 writes
+``--event-log``.
 
 ``main(argv, cfg)`` takes a ``ModelConfig`` from a caller (it then
 replaces ``--arch`` / ``--full-config``).
@@ -254,9 +261,6 @@ def _check_layout(ap, args, workers, m: int) -> None:
         ap.error(f"--stream-chunk {args.stream_chunk} needs m = {m} "
                  f"divisible by worker ranks x chunk = {size} x "
                  f"{args.stream_chunk}")
-    if size > 1 and args.chaos:
-        ap.error("--chaos runs on one process: a re-assignment changes "
-                 "m, and the ranks' machine blocks would change with it")
 
 
 def _shared_weights(w, m: int, workers, dev) -> np.ndarray:
@@ -312,7 +316,9 @@ def _train(ap, args, cfg, dev, workers) -> dict:
         straggler_p=args.straggler_p, seed=args.seed)
     adaptive = None if args.adaptive == "none" else args.adaptive
     # Chaos mode pushes each step's mask from the heartbeat monitor
-    # instead of sampling it from the straggler model.
+    # instead of sampling it from the straggler model. Every rank runs
+    # the same seeded injector and monitor, so every rank sees the same
+    # deaths and re-draws the same code.
     injector = monitor = surv = None
     mask_source = None
     if args.chaos:
@@ -359,13 +365,20 @@ def _train(ap, args, cfg, dev, workers) -> dict:
     if fsdp is not None:
         params = fsdp.shard(params)
         opt_state = fsdp.opt_shard(opt_state)
-    rows_split = workers.distributed and (
-        not dedup or pg.block_rows_split(comp_rows, workers.size))
-    if compress and rows_split:
-        comp_state = {"residual": T.map(
+
+    def rows_split() -> bool:
+        return workers.distributed and (
+            not dedup or pg.block_rows_split(comp_rows, workers.size))
+
+    def rank_residual(state):
+        if not rows_split():
+            return state
+        return {"residual": T.map(
             lambda x: x.clone(memory_format=torch.contiguous_format),
-            pg.rank_rows(comp_state["residual"], workers.size,
-                         workers.rank))}
+            pg.rank_rows(state["residual"], workers.size, workers.rank))}
+
+    if compress:
+        comp_state = rank_residual(comp_state)
     resident = {"params": resident_bytes(params),
                 "opt_state": resident_bytes(opt_state)}
 
@@ -392,7 +405,7 @@ def _train(ap, args, cfg, dev, workers) -> dict:
             state["compress"] = (
                 {"residual": pg.gather_rows(comp_state["residual"],
                                             workers)}
-                if rows_split else comp_state)
+                if rows_split() else comp_state)
         if lead:
             ckpt.save(args.ckpt_dir, state, step=step)
             print(f"saved step-{step} checkpoint to {args.ckpt_dir}")
@@ -408,8 +421,6 @@ def _train(ap, args, cfg, dev, workers) -> dict:
         # anew when a re-assignment changes the assignment. Without
         # --chaos there is one generation.
         while step < args.steps:
-            if runtime is not None:
-                assignment = runtime.assignment
             global_batch = assignment.n * args.block_size
             batcher = CodedBatcher(assignment, shuffle_seed=args.seed)
             emit = batcher.unique_blocks if dedup else batcher.code_batch
@@ -433,9 +444,14 @@ def _train(ap, args, cfg, dev, workers) -> dict:
                     workers=workers, fsdp=fsdp)
             batch_np = host_batch(step)
             if compress and generation > 0:
-                # the residual's rows follow the re-drawn block axis
-                comp_state = compress_mod.init_state(
-                    params, assignment.n if dedup else runtime.m)
+                # the residual's rows follow the re-drawn block axis,
+                # re-split over the ranks; leaves keep the whole
+                # parameter shapes (FSDP shards only params and moments)
+                comp_rows = assignment.n if dedup else assignment.m
+                comp_state = rank_residual({"residual": T.map(
+                    lambda r: torch.zeros((comp_rows,) + tuple(r.shape[1:]),
+                                          dtype=r.dtype, device=r.device),
+                    comp_state["residual"])})
             if rebuild_started is not None:
                 reassignments[-1]["rebuild_s"] = round(
                     time.time() - rebuild_started, 3)
@@ -460,8 +476,9 @@ def _train(ap, args, cfg, dev, workers) -> dict:
                 if args.chaos:
                     observed = monitor.observe(
                         step, injector.completion_times(step))
-                    runtime.mask_source.push(surv.localize(observed))
-                    w, alive = runtime.step_weights()
+                    if lead:
+                        runtime.mask_source.push(surv.localize(observed))
+                        w, alive = runtime.step_weights()
                 elif lead:
                     w, alive = lookahead_w.next()
                 if workers.distributed:
@@ -494,8 +511,9 @@ def _train(ap, args, cfg, dev, workers) -> dict:
                     new_events = monitor.drain_events()
                     for ev in new_events:
                         all_events.append(ev.to_json())
-                        print(f"step {ev.step}: machine {ev.machine} "
-                              f"{ev.kind} {ev.detail}")
+                        if lead:
+                            print(f"step {ev.step}: machine {ev.machine} "
+                                  f"{ev.kind} {ev.detail}")
                     reassign_dead = [ev.machine for ev in new_events
                                      if ev.kind == "dead"]
                     if reassign_dead:
@@ -513,25 +531,36 @@ def _train(ap, args, cfg, dev, workers) -> dict:
                          for d in reassign_dead]
                 surv.remove(reassign_dead)
                 generation += 1
-                runtime = coded_train.elastic_reassign(
-                    runtime, local, generation=generation,
-                    mask_source=sw.ObservedMaskSource(surv.alive_count))
+                # the others derive the same code (elastic_coding is a
+                # pure function) and need only its assignment
+                coding = coded_train.elastic_coding(
+                    coding, surv.alive_count, generation)
+                if lead:
+                    runtime = coded_train.elastic_reassign(
+                        runtime, local, generation=generation,
+                        mask_source=sw.ObservedMaskSource(
+                            surv.alive_count))
+                    assignment = runtime.assignment
+                else:
+                    assignment = coded_train.make_assignment(
+                        coding, surv.alive_count)
                 info = {"step": int(step), "generation": int(generation),
                         "dead": [int(d) for d in reassign_dead],
                         "survivors": surv.survivors.tolist(),
                         "m": surv.alive_count,
-                        "scheme": runtime.coding.scheme,
-                        "replication": int(runtime.coding.replication),
-                        "n_blocks": int(runtime.assignment.n),
+                        "scheme": coding.scheme,
+                        "replication": int(coding.replication),
+                        "n_blocks": int(assignment.n),
                         "rebuild_s": None}
                 reassignments.append(info)
                 all_events.append(
                     {"step": int(step), "kind": "reassign", "machine": -1,
                      "detail": {k: v for k, v in info.items()
                                 if k != "step"}})
-                print(f"step {step}: elastic re-assignment over "
-                      f"m={surv.alive_count} survivors (generation "
-                      f"{generation}, d={runtime.coding.replication})")
+                if lead:
+                    print(f"step {step}: elastic re-assignment over "
+                          f"m={surv.alive_count} survivors (generation "
+                          f"{generation}, d={coding.replication})")
         flush_metrics()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -561,7 +590,7 @@ def _train(ap, args, cfg, dev, workers) -> dict:
             "m_final": surv.alive_count,
             "generations": generation + 1,
         }
-        if args.event_log:
+        if args.event_log and lead:
             with open(args.event_log, "w") as f:
                 json.dump(chaos_summary, f, indent=1)
             print(f"wrote failure-event log to {args.event_log}")

@@ -1,18 +1,23 @@
-"""Attention with GQA and RoPE: the full-sequence (training) path and
-the cached single-token decode path backed by the hand-written
+"""Attention with GQA and RoPE: the full-sequence (training, prefill,
+encoder) path as blockwise attention with memory linear in the sequence,
+and the cached single-token decode path backed by the hand-written
 decode-attention kernel.
 
-Port of ``repro.models.attention``. ``attention_forward`` computes what
-the reference's ``blockwise_attention`` computes -- causal or
-bidirectional, plus an optional sliding window ``k > q - window``
-(``_block_mask``), scores and softmax in float32, probabilities cast to
-the input dtype before the value product, float32 accumulation -- as one
-masked softmax over the whole key axis: the reference has no Pallas
-kernel there, and at the training and prefill lengths used here the
-(Sq x Sk) scores fit. The reference's online softmax over 512-key blocks
-is the same function up to float32 rounding. Self-attention applies
-RoPE to q and k; cross-attention (``kv=``, the audio decoder over the
-encoder output) takes K and V from the source with no RoPE and no mask.
+Port of ``repro.models.attention``. ``blockwise_attention`` computes the
+reference's online softmax over (query block x key block) tiles: scores
+in float32 times ``Dh ** -0.5``; the causal mask ``k <= q`` and the
+sliding window ``k > q - window`` built per tile from absolute positions
+(the reference's ``_block_mask``), masked scores set to ``NEG_INF``
+(-1e30, not -inf, so a tile that is wholly masked adds exp(0) terms that
+the next real maximum scales to zero, as in the reference); a running
+maximum, sum and float32 accumulator; probabilities cast to the input
+dtype before the value product; ``acc / max(l, 1e-30)`` at the end. Its
+gradient is the flash-attention-2 backward (``_Blockwise``), so training
+memory is linear in the sequence too. ``attention_ref`` is the plain
+version over the whole (Sq x Sk) scores, for tests and checks at lengths
+where those fit. Self-attention applies RoPE to q and k; cross-attention
+(``kv=``, the audio decoder over the encoder output) takes K and V from
+the source with no RoPE and no mask.
 
 ``attention_decode`` writes the new K/V in place (the reference blends
 a one-hot and returns a new cache) and returns the cache it was given.
@@ -49,7 +54,7 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
 def _mask(sq: int, sk: int, causal: bool, window: Optional[int],
           device) -> Optional[torch.Tensor]:
     """(Sq, Sk) boolean mask, or None for none: key k <= query q when
-    causal, and k > q - window."""
+    causal, and k > q - window. The plain version's only."""
     if not causal and window is None:
         return None
     qp = torch.arange(sq, device=device)[:, None]
@@ -62,11 +67,12 @@ def _mask(sq: int, sk: int, causal: bool, window: Optional[int],
     return mask
 
 
-def grouped_attention(q, k, v, *, causal: bool = True,
-                      window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Sq, H, Dh); k, v: (B, Sk, KVH, Dh), H % KVH == 0.
-    Returns (B, Sq, H, Dh) in q.dtype. Query head h reads KV head
-    h // (H // KVH), the reference's (KVH, G) grouping."""
+def attention_ref(q, k, v, *, causal: bool = True,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """The plain version of ``blockwise_attention``: one masked softmax
+    over the whole (B, H, Sq, Sk) float32 scores, with K and V repeated
+    over the query group. Memory quadratic in the sequence: for tests
+    and checks at lengths where that fits, never the model's path."""
     B, Sq, H, Dh = q.shape
     G = H // k.shape[2]
     qf = q.float().permute(0, 2, 1, 3)                         # B,H,Sq,Dh
@@ -81,6 +87,176 @@ def grouped_attention(q, k, v, *, causal: bool = True,
     l = p.sum(dim=-1, keepdim=True)
     out = (p.to(q.dtype).float() @ vf.float()) / torch.clamp(l, min=1e-30)
     return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _tile_mask(q0: int, q1: int, k0: int, k1: int, causal: bool,
+               window: Optional[int], device):
+    """The mask of the tile of queries [q0, q1) and keys [k0, k1): None
+    when every pair is visible, False when none is, else the (tq, tk)
+    boolean tile from absolute positions (the reference's
+    ``_block_mask``). Decided from the positions alone, never from
+    data."""
+    if ((not causal or k1 - 1 <= q0)
+            and (window is None or k0 > q1 - 1 - window)):
+        return None
+    if ((causal and k0 > q1 - 1)
+            or (window is not None and k1 - 1 <= q0 - window)):
+        return False
+    qp = torch.arange(q0, q1, device=device)[:, None]
+    kp = torch.arange(k0, k1, device=device)[None, :]
+    mask = torch.ones(q1 - q0, k1 - k0, dtype=torch.bool, device=device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    return mask
+
+
+def _tile_scores(qt, kt, scale: float, mask, G: int):
+    """float32 scores (B*KVH, G*tq, tk) of one tile, masked to NEG_INF."""
+    s = torch.bmm(qt, kt.transpose(1, 2)).mul_(scale)
+    if mask is False:
+        s.fill_(NEG_INF)
+    elif mask is not None:
+        s.view(s.shape[0], G, -1, s.shape[2]).masked_fill_(~mask, NEG_INF)
+    return s
+
+
+def _grouped(x, KVH: int, G: int):
+    """(B, S, KVH*G, Dh) -> float32 (B*KVH, G, S, Dh): the reference's
+    (KVH, G) grouping of query heads (G = 1 for K and V)."""
+    B, S, _, Dh = x.shape
+    x = x.reshape(B, S, KVH, G, Dh).permute(0, 2, 3, 1, 4)
+    return x.reshape(B * KVH, G, S, Dh).float()
+
+
+def _blocks(n: int, block: int):
+    block = min(block, n)
+    return [(i, min(i + block, n)) for i in range(0, n, block)]
+
+
+def _blockwise_forward(q, k, v, causal, window, block_q, block_k):
+    """(out (B, Sq, H, Dh) in q.dtype, lse (B*KVH, G, Sq) float32)."""
+    B, Sq, H, Dh = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    BK = B * KVH
+    scale = Dh ** -0.5
+    qf = _grouped(q, KVH, G)
+    kf = _grouped(k, KVH, 1)[:, 0]                          # BK, Sk, Dh
+    vf = _grouped(v, KVH, 1)[:, 0]
+    out = torch.empty(B, Sq, KVH, G, Dh, dtype=q.dtype, device=q.device)
+    lse = torch.empty(BK, G, Sq, dtype=torch.float32, device=q.device)
+    for q0, q1 in _blocks(Sq, block_q):
+        tq = q1 - q0
+        qt = qf[:, :, q0:q1].reshape(BK, G * tq, Dh)
+        m = torch.full((BK, G * tq, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(BK, G * tq, Dh, dtype=torch.float32,
+                          device=q.device)
+        for k0, k1 in _blocks(Sk, block_k):
+            s = _tile_scores(qt, kf[:, k0:k1], scale,
+                             _tile_mask(q0, q1, k0, k1, causal, window,
+                                        q.device), G)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = s.sub_(m_new).exp_()
+            corr = torch.exp(m - m_new)
+            l = corr * l + p.sum(dim=-1, keepdim=True)
+            acc = acc.mul_(corr).add_(torch.bmm(p.to(q.dtype).float(),
+                                                vf[:, k0:k1]))
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)
+        out[:, q0:q1] = o.view(B, KVH, G, tq, Dh).permute(0, 3, 1, 2, 4)
+        lse[:, :, q0:q1] = (m + torch.log(torch.clamp(l, min=1e-30))
+                            ).view(BK, G, tq)
+    return out.view(B, Sq, H, Dh), lse
+
+
+def _blockwise_backward(q, k, v, out, lse, d_out, causal, window,
+                        block_q, block_k):
+    """The flash-attention-2 backward in float32, tile by tile: P from
+    the saved log-sum-exp, dV from P cast to the input dtype (as the
+    forward's value product), dS = P * (dP - rowsum(dO * O))."""
+    B, Sq, H, Dh = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    BK = B * KVH
+    scale = Dh ** -0.5
+    qf = _grouped(q, KVH, G)
+    kf = _grouped(k, KVH, 1)[:, 0]
+    vf = _grouped(v, KVH, 1)[:, 0]
+    dof = _grouped(d_out, KVH, G)
+    delta = (dof * _grouped(out, KVH, G)).sum(dim=-1)        # BK, G, Sq
+    dq = torch.empty(B, Sq, KVH, G, Dh, dtype=torch.float32,
+                     device=q.device)
+    dk = torch.zeros(BK, Sk, Dh, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0, q1 in _blocks(Sq, block_q):
+        tq = q1 - q0
+        qt = qf[:, :, q0:q1].reshape(BK, G * tq, Dh)
+        dot = dof[:, :, q0:q1].reshape(BK, G * tq, Dh)
+        lse_t = lse[:, :, q0:q1].reshape(BK, G * tq, 1)
+        delta_t = delta[:, :, q0:q1].reshape(BK, G * tq, 1)
+        dq_t = torch.zeros_like(qt)
+        for k0, k1 in _blocks(Sk, block_k):
+            kt, vt = kf[:, k0:k1], vf[:, k0:k1]
+            s = _tile_scores(qt, kt, scale,
+                             _tile_mask(q0, q1, k0, k1, causal, window,
+                                        q.device), G)
+            p = s.sub_(lse_t).exp_()
+            dv[:, k0:k1] += torch.bmm(p.to(q.dtype).float().transpose(1, 2),
+                                      dot)
+            ds = torch.bmm(dot, vt.transpose(1, 2)).sub_(delta_t).mul_(p)
+            dq_t += torch.bmm(ds, kt)
+            dk[:, k0:k1] += torch.bmm(ds.transpose(1, 2), qt)
+        dq[:, q0:q1] = (dq_t.mul_(scale).view(B, KVH, G, tq, Dh)
+                        .permute(0, 3, 1, 2, 4))
+    dk = dk.mul_(scale).view(B, KVH, Sk, Dh).permute(0, 2, 1, 3)
+    dv = dv.view(B, KVH, Sk, Dh).permute(0, 2, 1, 3)
+    return (dq.view(B, Sq, H, Dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Blockwise(torch.autograd.Function):
+    """Forward saves q, k, v, the output and the float32 log-sum-exp;
+    backward recomputes each tile. No data-dependent control flow, so
+    it runs on meta tensors (``launch.step_analysis``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, block_q, block_k):
+        out, lse = _blockwise_forward(q, k, v, causal, window, block_q,
+                                      block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (causal, window, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _blockwise_backward(q, k, v, out, lse, d_out,
+                                         *ctx.cfg)
+        return dq, dk, dv, None, None, None, None
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, block_q: int = 512,
+                        block_k: int = 512) -> torch.Tensor:
+    """Online-softmax attention over (block_q x block_k) tiles, both
+    block axes looped, every key block computed (tiles a mask wholly
+    hides too, as the reference does). q: (B, Sq, H, Dh); k, v:
+    (B, Sk, KVH, Dh), H % KVH == 0; query head h reads KV head
+    h // (H // KVH), and K and V are not repeated over the group.
+    Returns (B, Sq, H, Dh) in q.dtype.
+
+    Memory is linear in the sequence: no (Sq, Sk) tensor or mask. A
+    tile is (B*KVH, G*block_q, block_k) float32 -- 32 MiB at B = 1,
+    H = 32, blocks of 512, whatever the length; at 32,768 tokens of
+    granite-3-8b (H = 32, KVH = 8, Dh = 128) the largest tensors of a
+    call are the float32 copies of q, k, v (0.54, 0.13, 0.13 GB) and the
+    output, and the backward adds float32 dQ, dK, dV of the same sizes.
+    """
+    return _Blockwise.apply(q, k, v, causal, window, block_q, block_k)
 
 
 def attention_forward(p, x, *, n_heads: int, n_kv_heads: int,
@@ -102,8 +278,8 @@ def attention_forward(p, x, *, n_heads: int, n_kv_heads: int,
         pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
-    out = grouped_attention(q, k, v, causal=causal and kv is None,
-                            window=window)
+    out = blockwise_attention(q, k, v, causal=causal and kv is None,
+                              window=window)
     return linear(p["wo"], out.reshape(B, S, n_heads * head_dim))
 
 

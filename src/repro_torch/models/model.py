@@ -19,9 +19,16 @@ Parameters keep the reference's key paths and stacked-layer layout
 (``blocks/attn/wq/w`` of shape ``(L, d_in, d_out)``), so a parameter
 tree crosses between the packages through NumPy (``models.convert``).
 The reference's ``lax.scan`` over the stacked layers is a Python loop
-over per-layer views, and its ``jax.checkpoint`` rematerialisation is
-not carried: autograd keeps each layer's activations. Decode caches
-(KV, SSM and xLSTM states) are updated in place.
+over per-layer views. Its ``jax.checkpoint`` rematerialisation is
+carried where it sits: when grad is enabled, each layer of dense, vlm,
+moe and audio (decoder and encoder), each SSM layer of the hybrid (not
+its shared-attention insertions) and each xLSTM super-block, with each
+of its mLSTM layers inside it, runs under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: the forward
+keeps a layer's input and its backward recomputes the layer, so
+training memory per layer is its residual. Decoding and prefill run
+under no grad and recompute nothing. Decode caches (KV, SSM and xLSTM
+states) are updated in place.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
@@ -262,33 +270,57 @@ def _segments(cfg: ModelConfig):
             for s in range(len(bounds) - 1)]
 
 
+# Test hook: False runs the training forward without rematerialisation.
+_REMAT = True
+
+
+def _remat(body, x):
+    """``body(x)``, rematerialised in the backward when grad is enabled
+    (the reference's ``jax.checkpoint``). ``use_reentrant=False``: the
+    per-row gradients take ``torch.autograd.grad``, which the re-entrant
+    form does not support; the blocks draw no random numbers, so no RNG
+    state is kept."""
+    if _REMAT and torch.is_grad_enabled():
+        return checkpoint(body, x, use_reentrant=False,
+                          preserve_rng_state=False)
+    return body(x)
+
+
 def _backbone(params, x, cfg: ModelConfig, *, window, src=None):
     """The layer stack over embedded inputs x (B, S, D)."""
     at = cfg.arch_type
     if at in ("dense", "vlm"):
         for lp in _layers(params["blocks"]):
-            x = _attn_block(lp, x, cfg, window=window)
+            x = _remat(lambda h, lp=lp: _attn_block(lp, h, cfg,
+                                                     window=window), x)
     elif at == "moe":
         for lp in _layers(params["blocks"]):
-            x = _moe_block(lp, x, cfg, window=window)
+            x = _remat(lambda h, lp=lp: _moe_block(lp, h, cfg,
+                                                    window=window), x)
     elif at == "hybrid":
         blocks = _layers(params["blocks"])
         for lo, hi, then_attn in _segments(cfg):
             for lp in blocks[lo:hi]:
-                x = _ssm_block(lp, x, cfg)
+                x = _remat(lambda h, lp=lp: _ssm_block(lp, h, cfg), x)
             if then_attn:
+                # outside the reference's remat'd scan: not recomputed
                 x = _attn_block(params["shared_attn"], x, cfg,
                                 window=window)
     elif at == "ssm":
         r = cfg.slstm_ratio
         mblocks = _layers(params["mlstm_blocks"])
+
+        def super_block(h, mps, sp):
+            for mp in mps:
+                h = _remat(lambda hh, mp=mp: _mlstm_block(mp, hh, cfg), h)
+            return _slstm_block(sp, h, cfg)
         for s, sp in enumerate(_layers(params["slstm_blocks"])):
-            for mp in mblocks[s * r:(s + 1) * r]:
-                x = _mlstm_block(mp, x, cfg)
-            x = _slstm_block(sp, x, cfg)
+            x = _remat(lambda h, mps=mblocks[s * r:(s + 1) * r], sp=sp:
+                       super_block(h, mps, sp), x)
     elif at == "audio":
         for lp in _layers(params["blocks"]):
-            x = _attn_block(lp, x, cfg, window=window, cross_kv=src)
+            x = _remat(lambda h, lp=lp: _attn_block(
+                lp, h, cfg, window=window, cross_kv=src), x)
     else:
         raise ValueError(f"unknown arch_type {at!r}")
     return x
@@ -300,7 +332,8 @@ def encode(params, src_embeds, cfg: ModelConfig) -> torch.Tensor:
     ``cfg.dtype``."""
     x = src_embeds.to(_dtype(cfg.dtype))
     for lp in _layers(params["encoder"]):
-        x = _attn_block(lp, x, cfg, window=None, causal=False)
+        x = _remat(lambda h, lp=lp: _attn_block(lp, h, cfg, window=None,
+                                                 causal=False), x)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -375,7 +408,7 @@ def prefill(params, tokens, cfg: ModelConfig, *,
     LM head runs on the last position only, as in the reference."""
     x = forward_hidden(params, tokens, cfg, prefix=prefix, src=src,
                        window=window)
-    return _lm_head(params, x[:, -1:], cfg)[:, 0]
+    return _lm_head(params, x[:, -1], cfg)
 
 
 # ---------------------------------------------------------------------------

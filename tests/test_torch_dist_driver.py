@@ -13,8 +13,11 @@ sequences of 32 in blocks of 2, p = 0.2).
   checkpoint, within rtol 1e-4; a 4-rank FSDP run resumes the one-process
   run's step-6 checkpoint and its tail equals that run's; the checkpoint
   it writes holds the whole tensors and restores into a one-process run.
-- Refusals: ``--stream-chunk`` without ``--collective manual``, chaos on
-  W > 1 ranks, and ``--machines`` not a multiple of W.
+- ``--chaos kill:1@3`` on 4 ranks against the port's one-process driver
+  (m = 4 -> 3: the 3 blocks stay whole on every rank): the chaos objects
+  equal but ``rebuild_s``, the losses within rtol 1e-4.
+- Refusals: ``--stream-chunk`` without ``--collective manual`` and
+  ``--machines`` not a multiple of W.
 
 The reference package is imported inside the tests only, so the spawned
 ranks never load JAX.
@@ -86,6 +89,8 @@ def runs(tmp_path_factory):
     # the one-process dedup run, with a composite checkpoint at step 6
     single = ttrain.main(["--device", "cpu", *FLAGS, "--ckpt-dir",
                           str(tmp / "single"), "--ckpt-every", "6"])
+    single_chaos = ttrain.main(["--device", "cpu", *FLAGS, "--chaos",
+                                "kill:1@3"])
     shutil.copytree(tmp / "single", tmp / "resume")
     os.remove(tmp / "resume" / "ckpt_00000012.npz")
     cpu = ["--device", "cpu", *FLAGS]
@@ -98,7 +103,8 @@ def runs(tmp_path_factory):
     mp.spawn(_entry, args=(WORLD, str(tmp), jobs), nprocs=WORLD, join=True)
     ranks = [torch.load(tmp / f"out{r}.pt", weights_only=False)
              for r in range(WORLD)]
-    return {"tmp": tmp, "single": single, "ranks": ranks}
+    return {"tmp": tmp, "single": single, "single_chaos": single_chaos,
+            "ranks": ranks}
 
 
 def _rank0(runs, key):
@@ -164,10 +170,23 @@ def test_fsdp_resumes_a_one_process_checkpoint_and_writes_whole_tensors(
     assert back["start_step"] == 12 and len(back["losses"]) == 2
 
 
+def test_chaos_on_four_ranks_matches_the_one_process_driver(runs):
+    p, single = _rank0(runs, "chaos"), runs["single_chaos"]
+    assert p["world_size"] == WORLD and p["path"] == "dedup"
+
+    def without_rebuild_s(chaos):
+        return {**chaos, "reassignments": [
+            {k: v for k, v in r.items() if k != "rebuild_s"}
+            for r in chaos["reassignments"]]}
+    assert without_rebuild_s(p["chaos"]) == \
+        without_rebuild_s(single["chaos"])
+    assert p["chaos"]["dead_machines"] == [1]
+    assert p["chaos"]["m_final"] == 3
+    np.testing.assert_allclose(p["losses"], single["losses"], rtol=1e-4)
+
+
 def test_driver_refusals_on_four_ranks(runs, capsys):
     for rank in runs["ranks"]:
-        status, code = rank["chaos"]
-        assert status == "exit" and code == "2"
         status, code = rank["machines"]
         assert status == "exit" and code == "2"
     with pytest.raises(SystemExit):

@@ -20,6 +20,14 @@ joined over a ``FileStore`` in the test's directory.
 - The dedup block fallback: with n blocks not a multiple of W every
   rank keeps all of them, and the step equals the one-process step.
 - ``--production-mesh`` refuses at W = 4, naming both sizes.
+- The training driver under ``--chaos`` on W = 2 ranks (qwen1.5-4b smoke
+  variant, 12 steps; tests/test_torch_dist_driver.py's flags) against the
+  port's one-process driver: ``kill:1@3`` (m = 4 -> 3, the 3 blocks
+  kept whole on both ranks), the same under ``--compress int8`` (the
+  residual follows), and ``--machines 6 --chaos rack:1,2@3`` under int8
+  (6 -> 4 blocks: blocks and residual rows re-split, 2 a rank). The
+  chaos objects equal (but ``rebuild_s``), the losses within rtol 1e-4
+  (the drivers' tolerance), every rank reporting the same losses.
 
 Parameters reach the ranks as NumPy through ``models.convert``; every
 rank runs under ``torch.use_deterministic_algorithms`` so its
@@ -43,6 +51,7 @@ from repro_torch.dist import process_group as pg
 from repro_torch.dist.fsdp import FSDP, resident_bytes
 from repro_torch.dist.sharding import bytes_per_device, fsdp_specs
 from repro_torch.kernels.coded_combine import ops as cc_ops
+from repro_torch.launch import train as ttrain
 from repro_torch.models import model as M
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.optim import optimizers as opt_mod
@@ -400,6 +409,41 @@ def test_production_mesh_refuses_at_four_ranks(tmp_path_factory):
         pg.init_workers("cpu", production=True)
 
 
+DRIVER_FLAGS = ["--device", "cpu", "--arch", "qwen1.5-4b", "--steps",
+                "12", "--seq-len", "32", "--block-size", "2"]
+CHAOS_RUNS = {"kill": ["--chaos", "kill:1@3"],
+              "kill-int8": ["--chaos", "kill:1@3", "--compress", "int8"],
+              "rack-int8": ["--machines", "6", "--chaos", "rack:1,2@3",
+                            "--compress", "int8"]}
+_ONE_PROCESS = {}
+
+
+def _driver(rank, world, argv):
+    return ttrain.main(argv)
+
+
+def _without_rebuild_s(chaos):
+    return {**chaos, "reassignments": [
+        {k: v for k, v in r.items() if k != "rebuild_s"}
+        for r in chaos["reassignments"]]}
+
+
+@pytest.mark.parametrize("run", list(CHAOS_RUNS))
+def test_chaos_driver_on_two_ranks_matches_one_process(run,
+                                                       tmp_path_factory):
+    outs = _results(2, ("driver", run), tmp_path_factory)
+    if run not in _ONE_PROCESS:
+        _ONE_PROCESS[run] = ttrain.main(DRIVER_FLAGS + CHAOS_RUNS[run])
+    single, p = _ONE_PROCESS[run], outs[0]
+    assert p["world_size"] == 2 and single["world_size"] == 1
+    assert _without_rebuild_s(p["chaos"]) == \
+        _without_rebuild_s(single["chaos"])
+    (re,) = p["chaos"]["reassignments"]
+    assert re["n_blocks"] == (4 if run == "rack-int8" else 3)
+    np.testing.assert_allclose(p["losses"], single["losses"], rtol=1e-4)
+    assert outs[1]["losses"] == p["losses"]
+
+
 # ------------------------------------------------- the jobs, by world
 
 M_ALLREDUCE = 8
@@ -428,6 +472,8 @@ def _jobs():
     jobs[(4, "dedup")] = ("_dedup", (tree_frc, blocks_frc, _frc_v(A_frc),
                                      TT.dedup_norm_scale(A_frc)))
     jobs[(4, "production")] = ("_production", ())
+    for run, flags in CHAOS_RUNS.items():
+        jobs[(2, ("driver", run))] = ("_driver", (DRIVER_FLAGS + flags,))
     return jobs
 
 

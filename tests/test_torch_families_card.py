@@ -58,6 +58,23 @@ def norms_per_pass(cfg, *, decode: bool) -> int:
     return 2 * L + 1
 
 
+def train_norms_per_step(cfg) -> int:
+    """rmsnorm launches of one training forward and backward: the
+    forward's, and again those of each layer the backward recomputes
+    (``models.model``'s remat: each layer but the hybrid's shared
+    attention; each xLSTM super-block, its mLSTM layers once more)."""
+    at, L = cfg.arch_type, cfg.n_layers
+    if at == "hybrid":
+        again = L
+    elif at == "ssm":
+        r = cfg.slstm_ratio
+        n_super = L // (r + 1)
+        again = 2 * (r + 1) * n_super + 2 * r * n_super
+    else:
+        again = 2 * L
+    return norms_per_pass(cfg, decode=False) + again
+
+
 def attention_per_step(cfg) -> int:
     if cfg.arch_type == "hybrid":
         return len(cfg.attn_positions)
@@ -86,7 +103,7 @@ def test_family_train_steps_on_card(cuda, arch, over):
             out[force] = train.main(argv, cfg=cfg)
             launches = rn_ops.launches
         if force is None:
-            assert launches == norms_per_pass(cfg, decode=False) * STEPS
+            assert launches == train_norms_per_step(cfg) * STEPS
         else:
             assert launches == 0
     got, want = out[None]["losses"], out["ref"]["losses"]

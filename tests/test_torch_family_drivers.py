@@ -15,11 +15,15 @@ not. Where two tokens' router probabilities are a float32 rounding
 apart, the two libraries' reduction orders may pick differently, and
 the loss moves by far more than 1e-4 from that step on. So the port's
 driver records, for every routing call, the relative gap between each
-expert's C-th and (C+1)-th probability. The streams must agree at every
-step before the first with a gap in (0, ``NEAR_TIE``); from such a step
-on, the streams may part, and the test shows the near-tie. (A gap of 0
-is an exact tie, which both packages break toward the lower index:
-tests/test_torch_mixers.py.)
+expert's C-th and (C+1)-th probability. The streams must agree within
+1e-4 at every step until they part, they may part only at or after a
+step with a gap in (0, ``NEAR_TIE``), and they must agree over at least
+half the steps; the test shows the near-ties. (A gap of 0 is an exact
+tie, which both packages break toward the lower index:
+tests/test_torch_mixers.py. A near-tie need not part the streams: at
+deepseek-moe-16b's step 2 two tokens whose router inputs are equal in
+exact arithmetic -- a repeated token, its attention output the mean of
+two equal values -- land an ulp apart, and the streams agree on.)
 """
 
 import contextlib
@@ -100,13 +104,18 @@ def test_driver_loss_streams_match_reference_driver(
     for key in ("path", "collective", "compress", "comm_bytes_per_step",
                 "comm_bytes_per_step_float32", "decode_calls"):
         assert p[key] == r[key], key
-    first = STEPS
+    near = []
     if gaps:
         per_step = len(gaps) // STEPS
         assert per_step * STEPS == len(gaps)
-        near = [i // per_step for i, g in enumerate(gaps)
-                if 0 < g < NEAR_TIE]
-        first = min(near, default=STEPS)
-    assert first >= STEPS // 2, f"a routing near-tie at step {first}"
-    np.testing.assert_allclose(p["losses"][:first], r["losses"][:first],
+        near = sorted({i // per_step for i, g in enumerate(gaps)
+                       if 0 < g < NEAR_TIE})
+    rel = np.abs(np.subtract(p["losses"], r["losses"])) / np.abs(
+        r["losses"])
+    parted = next((i for i in range(STEPS) if rel[i] > 1e-4), STEPS)
+    assert parted == STEPS or (near and near[0] <= parted), \
+        f"the streams part at step {parted} before any routing near-tie"
+    assert parted >= STEPS // 2, \
+        f"the streams part at step {parted} (routing near-ties at {near})"
+    np.testing.assert_allclose(p["losses"][:parted], r["losses"][:parted],
                                rtol=1e-4)

@@ -1,14 +1,19 @@
 """``launch.step_analysis`` against the reference's HLO analysis, and the
 meta-device routing of the kernel dispatchers.
 
-- Prefill at the qwen1.5-4b smoke config: the port's matmul FLOPs equal
-  ``hlo_analysis.analyze`` of the reference's jitted CPU prefill.
+- Prefill at the qwen1.5-4b smoke config: the port's matmul FLOPs and
+  dot bytes equal ``hlo_analysis.analyze`` of the reference's jitted
+  CPU prefill.
 - The coded train step (replicated, 2 microbatches, the reference's
-  ``tests/test_system.py`` dry-run shape): the reference's count is the
-  port's plus its rematerialisation -- ``jax.checkpoint`` recomputes
-  each layer's forward in the backward, all of it but the MLP's down
-  projection, whose output the backward never reads (XLA drops it). The
-  dedup step is the replicated one over m * load / n fewer sequences.
+  ``tests/test_system.py`` dry-run shape): both rematerialise each layer
+  (``jax.checkpoint``; ``torch.utils.checkpoint``), and both recompute
+  all of a layer's forward but the MLP's down projection, whose output
+  the backward never reads (XLA drops it; torch's non-reentrant
+  checkpoint stops its recomputation at the last tensor the backward
+  needs). The port's count is the reference's plus one Q K^T product a
+  tile: the flash-attention backward recomputes the scores, where the
+  reference's scan saves them. The dedup step is the replicated one
+  over m * load / n fewer sequences.
 - A train step of k microbatches counts k times a one-microbatch step
   on one microbatch's blocks (what the dry-run relies on).
 - Every family's train, prefill and decode steps run on meta tensors:
@@ -63,11 +68,12 @@ def test_prefill_flops_equal_the_reference_hlo_count():
     got = sa.analyze(ct.make_prefill_step(cfg), specs.meta_params(cfg),
                      {"tokens": specs.meta((B, S), torch.int32)})
     assert got["flops"] == ref["flops"] > 0
+    assert got["dot_bytes"] == ref["dot_bytes"] > 0
     assert got["collective_bytes"] == ref["collective_bytes"] == 0
     assert got["materialised_bytes"] == 0
 
 
-def test_train_flops_equal_the_reference_less_its_remat():
+def test_train_flops_equal_the_reference_plus_the_flash_qk_recompute():
     cfg = get_config("qwen1.5-4b").smoke_variant()
     r_cfg = r_get_config("qwen1.5-4b").smoke_variant()
     mesh = make_test_mesh((1, 1))
@@ -87,13 +93,26 @@ def test_train_flops_equal_the_reference_less_its_remat():
     port = sa.analyze(ct.make_train_step(cfg, opt, n_microbatches=2),
                       *spec.args)
     m, load, bs, S = spec.args[2]["tokens"].shape
-    tokens = m * load * bs * S
+    # one (S x S) tile a sequence (S <= the 512 blocks), every layer
+    qk = cfg.n_layers * 2 * (m * load * bs) * cfg.n_heads * S * S \
+        * cfg.head_dim
+    assert port["flops"] == ref["flops"] + qk
+
+    # the recomputation is the forward less the MLP down projection
+    M._REMAT = False
+    try:
+        kept = sa.analyze(ct.make_train_step(cfg, opt, n_microbatches=2),
+                          *spec.args)
+    finally:
+        M._REMAT = True
     x = specs.meta((m * load * bs, S, cfg.d_model), cfg.dtype)
-    forward = sa.analyze(lambda p, x: M._backbone(p, x, cfg, window=None),
-                         spec.args[0], x)["flops"]
-    mlp_down = cfg.n_layers * 2 * tokens * cfg.d_ff * cfg.d_model
-    remat = forward - mlp_down
-    assert ref["flops"] == port["flops"] + remat
+    with torch.no_grad():
+        forward = sa.analyze(
+            lambda p, x: M._backbone(p, x, cfg, window=None),
+            spec.args[0], x)["flops"]
+    mlp_down = cfg.n_layers * 2 * m * load * bs * S * cfg.d_ff \
+        * cfg.d_model
+    assert port["flops"] - kept["flops"] == forward - mlp_down > 0
 
     # dedup: each of the n unique blocks once instead of m * load rows
     n = 2 * m // 2

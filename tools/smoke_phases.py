@@ -1,0 +1,85 @@
+"""Run single phases of ``chip_smoke.py`` on the card, after building the
+kernels, each printing its own line; a phase that raises prints its
+error and the others still run.
+
+    python tools/smoke_phases.py long prefill remat chaos
+    python tools/smoke_phases.py chaos --chaos-dtype bfloat16
+
+Phases: ``long`` (``long_attention``), ``prefill`` (``prefill_32k``),
+``remat`` (``remat``, without the train phase's dedup row) and ``chaos``
+(the distributed phase's chaos run on two gloo ranks against one process,
+in ``--chaos-dtype`` activations, float32 by default as in
+``chip_smoke.py``). Exits non-zero if any phase raised.
+"""
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+import traceback
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import chip_smoke as C  # noqa: E402
+
+PHASES = ("long", "prefill", "remat", "chaos")
+
+
+def _chaos(torch, dtype):
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    cfg = get_config("granite-3-8b").with_overrides(n_layers=2,
+                                                    dtype=dtype)
+    one, _, _, _ = C._run_train(torch, cfg, [], None, C.DIST_CHAOS_ARGS)
+    C._free(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(C._gloo_rank, args=(tmp, {"chaos": (C.DIST_CHAOS_ARGS,
+                                                     dtype)}),
+                 nprocs=2, join=True)
+        outs = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                outs.append(json.load(f)["chaos"])
+    row = C._gloo_chaos(outs, one, cfg)
+    C._say("chaos", **{**row, "dtype": dtype})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("phases", nargs="+", choices=PHASES)
+    ap.add_argument("--chaos-dtype", default=C.CHAOS_DTYPE,
+                    choices=("float32", "bfloat16"))
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("smoke_phases: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+    build.build()
+    dev = torch.device("cuda")
+    failed = []
+    for name in args.phases:
+        t0 = time.perf_counter()
+        try:
+            if name == "long":
+                C.long_attention(torch, dev)
+            elif name == "prefill":
+                C.prefill_32k(torch, dev)
+            elif name == "remat":
+                C.remat(torch, dev, {"ms_per_step": None,
+                                     "peak_mem_gb": None})
+            else:
+                _chaos(torch, args.chaos_dtype)
+        except Exception:           # report it, run the other phases
+            traceback.print_exc()
+            failed.append(name)
+        C._say("phase", name=name, seconds=time.perf_counter() - t0)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -113,7 +113,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    layer at most half as fast with remat as without; the line also
    carries the dedup run's ms a step and peak.
 5a. The distributed runtime (``distributed``), at the training path's
-   width (granite-3-8b, 2 layers, ``DIST_ARGS``: 12 steps, m = 4). On one
+   width (granite-3-8b, 2 layers, ``DIST_ARGS``: 8 steps, m = 4). On one
    ``nccl`` rank in process: the manual collective materialising, then
    streaming with chunks of 1 and 2 machines, then int8 and sign_packed
    streaming with chunks of 1 (counts zeroed before each run and read
@@ -135,6 +135,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    step on each rank. The
    ``distributed`` line prints ms a step, peak GB, all_reduce bytes a
    step and launch counts per run.
+5a'. The model axis (``model_axis``), executed by
+   ``dist.tensor_parallel``, on two ``gloo`` ranks spawned on the one
+   card (NCCL refuses two ranks on one device). Training on the layout
+   (data, model) = (1, 2) at the training path's width (granite-3-8b,
+   2 layers, ``DIST_ARGS``, float32 activations): the dedup path with
+   no compression, int8 and sign_packed, each rank holding its shards
+   of the leaves ``safe_param_specs`` splits; each loss stream within
+   rtol 1e-4 of the one-process run of the same arguments, each rank's
+   resident parameter bytes within 2 % of ``bytes_per_device``, K1 (9 a
+   step and block), K4 and K5 (one launch a leaf and step, on the shard
+   rows) counts on each rank. Serving granite-3-8b at full config (40
+   layers, bf16) through ``launch.serve.main`` on (1, 2) (16 query and
+   4 KV heads a rank through K2, the vocabulary split) and on (2, 1)
+   (4 slots a rank): ``--check`` passes on each; the ranks'
+   teacher-forced logits along the one-process streams within
+   ``MA_LOGIT_ATOL`` of the one process's, and the streams equal the
+   one-process engine's up to each request's first position whose
+   one-process top-2 logit gap is at most twice the largest logit
+   difference seen (a closer pair is the only place the argmax can
+   change), which is printed with the number of tokens the rule held
+   equal (few where the ranks' rounding is large: the teacher-forced
+   bound is then the check that counts); K1 and K2 at 81 and 40 a pool
+   step on each rank. The kernels phase holds K2 at that 16/4-head shape
+   against its plain version.
 5b. The other families at full width (``families``): deepseek-moe-16b
    (moe), zamba2-1.2b (hybrid), xlstm-1.3b (ssm), pixtral-12b (vlm) and
    seamless-m4t-large-v2 (audio). Each trains 6 steps on the dedup path
@@ -1501,10 +1525,13 @@ def families(torch, dev):
 # sharing the card
 # ---------------------------------------------------------------------------
 
-# the training runs' arguments: 12 steps, the fewest over which the
-# training CLI's window-mean loss reliably falls at lr 1e-4 (4 did not)
-DIST_ARGS = TRAIN_ARGS
-DIST_STEPS = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+# the training runs' arguments cut from 12 steps to 8, to keep the whole
+# script well inside its time limit: the training CLI's window-mean loss
+# check then compares the first two steps with the last two, and at seed
+# 0 and lr 1e-4 the loss falls over them on every path (4 steps did not;
+# the runs are deterministic in the seed)
+DIST_STEPS = 8
+DIST_ARGS = ["--steps", str(DIST_STEPS)] + TRAIN_ARGS[2:]
 MANUAL = ["--collective", "manual"]
 DIST_RUNS = (("materialising", MANUAL),
              ("stream chunk 1", MANUAL + ["--stream-chunk", "1"]),
@@ -1688,7 +1715,7 @@ def _gloo_rank(rank, tmp, jobs):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            s = launch_train.main(argv, cfg=cfg)
+            s = launch_train.main(argv, cfg=cfg, model=1)
             wall = time.perf_counter() - t0
             out[label] = {"summary": s, "wall_s": wall,
                           "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -1855,6 +1882,360 @@ def distributed(torch, dev, card):
     _say("distributed", card=card, arch=cfg.name, n_layers=cfg.n_layers,
          steps=DIST_STEPS, m=4, rtol=DIST_RTOL, atol=DIST_ATOL, runs=rows,
          stream_grads=grads, fsdp_one_rank=fsdp)
+    return totals
+
+
+# ---- the model axis: two gloo ranks sharing the card on layout (1, 2)
+# Training: granite-3-8b at full width, 2 layers, the dedup path with no
+# compression, int8 and sign_packed, ``DIST_ARGS`` (8 steps: the
+# driver's loss-decrease check compares window means of a quarter of
+# the steps, and at 6 one sampled draw lifts the last step over the
+# first), against the one-process runs of the same arguments. In float32
+# activations, as the chaos check: in bf16 a row-parallel product's two
+# partial sums are each rounded to bf16 before the all-reduce adds them,
+# which the one-process GEMM never rounds, and that alone moves losses
+# past the rtol of 1e-4 (GEMM shapes alone moved them 1.13e-4 relative
+# on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
+MA_STEPS = DIST_STEPS
+MA_DTYPE = "float32"
+MA_TRAIN_ARGS = DIST_ARGS
+MA_TRAIN_RUNS = (("dedup", []), ("int8", ["--compress", "int8"]),
+                 ("sign_packed", ["--compress", "sign_packed"]))
+MA_RTOL = 1e-4
+MA_RESIDENT_RTOL = 0.02        # resident parameter bytes vs bytes_per_device
+# Serving: granite-3-8b at full config (40 layers, bf16) on (1, 2) and on
+# (2, 1), 8 requests on 8 slots, coded prefill at p = 0.2, ``--check``.
+MA_SERVE_ARGS = ["--arch", "granite-3-8b", "--full-config", "--requests",
+                 "8", "--slots", "8", "--prompt-len", "48",
+                 "--prompt-spread", "16", "--max-new-tokens", "16",
+                 "--max-len", "128", "--replicas", "8", "--seed", "0",
+                 "--scheme", "expander", "--straggler-p", "0.2", "--check"]
+# Teacher-forced bf16 logits of the two ranks within this of the one
+# process's, absolutely: 40 bf16 layers put ~0.11 between bf16 and
+# float32 logits at this config (``teacher_forced``'s measurement,
+# PERF.md), and the two ranks' other rounding is of that order; 0.25 is
+# 2.3 x that.
+MA_LOGIT_ATOL = 0.25
+
+
+def _ma_requests(args):
+    """The serving CLI's requests for ``args`` (their prompts)."""
+    import types
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    kv = {a: v for a, v in zip(args, args[1:]) if a.startswith("--")}
+    ns = types.SimpleNamespace(
+        seed=int(kv["--seed"]), requests=int(kv["--requests"]),
+        prompt_len=int(kv["--prompt-len"]),
+        prompt_spread=int(kv["--prompt-spread"]),
+        max_new_tokens=int(kv["--max-new-tokens"]))
+    return launch_serve._build_requests(ns, get_config("granite-3-8b"))
+
+
+def _ma_teacher_forced(torch, dev, cfg, params, reqs, streams, workers):
+    """Decode logits (float32, whole vocabulary) at every generated
+    position of ``reqs``, each fed its prompt and then ``streams``' tokens
+    (teacher-forced), all requests as one batch, on ``workers``' placement
+    (this rank's slots, gathered). Returns (n_new, B, V)."""
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.models import model as M
+    from repro_torch.serve import slot_rows
+    B = len(reqs)
+    seqs = [list(r.prompt) + list(streams[r.uid][:-1]) for r in reqs]
+    T = max(len(q) for q in seqs)
+    n_new = len(streams[reqs[0].uid])
+    rows = slot_rows(B, workers)
+    model = None if workers is None else workers.model
+    with tp.executing(model), torch.no_grad():
+        cache = M.init_decode_cache(cfg, rows.stop - rows.start, T + 1,
+                                    device=dev)
+        out = torch.zeros(n_new, B, cfg.padded_vocab(), device=dev)
+        for t in range(T):
+            tok = torch.tensor([q[t] if t < len(q) else 0 for q in seqs],
+                               dtype=torch.int32, device=dev)
+            logits, cache = M.decode_step(params, tok[rows], cache, cfg)
+            if rows.stop - rows.start != B:
+                logits = workers.all_gather_(
+                    torch.empty(B, logits.shape[1], device=dev),
+                    logits.contiguous())
+            for i, r in enumerate(reqs):
+                j = t - (len(r.prompt) - 1)
+                if 0 <= j < n_new:
+                    out[j, i] = logits[i]
+    return out
+
+
+def _model_axis_rank(rank, tmp, jobs):
+    """One of two gloo ranks on the card: ``jobs`` in order, each a
+    training run (label -> ("train", argv)) on layout (1, 2), or a
+    serving run (label -> ("serve", model)) on (1, 2) or (2, 1) followed
+    by its teacher-forced logits along the one-process streams; launch
+    counts, traffic, peaks and results written to ``tmp``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist import process_group as pg
+    from repro_torch.kernels.coded_combine import ops as cc_ops
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), 2), rank=rank, world_size=2)
+    try:
+        out = {}
+        for label, (kind, arg) in jobs.items():
+            _free(torch)
+            rn_ops.launches = da_ops.launches = 0
+            cc_ops.launches = dict.fromkeys(cc_ops.launches, 0)
+            traffic0 = dict(pg.traffic)
+            t0 = time.perf_counter()
+            if kind == "train":
+                cfg = get_config("granite-3-8b").with_overrides(
+                    n_layers=2, dtype=MA_DTYPE)
+                res = {"summary": launch_train.main(arg, cfg=cfg, model=2)}
+            else:
+                r = launch_serve.main(MA_SERVE_ARGS, model=arg)
+                res = {"summary": r["summary"],
+                       "results": {str(k): v.tolist()
+                                   for k, v in r["results"].items()}}
+            wall = time.perf_counter() - t0
+            res.update(wall_s=wall,
+                       peak_bytes=torch.cuda.max_memory_allocated(),
+                       launches={"rmsnorm": rn_ops.launches,
+                                 "decode_attention": da_ops.launches,
+                                 **cc_ops.launches},
+                       traffic={k: pg.traffic[k] - traffic0[k]
+                                for k in traffic0})
+            if kind == "serve":
+                # teacher-forced along the one-process streams, on this
+                # layout's placement
+                with open(os.path.join(tmp, "one_streams.json")) as f:
+                    one = {int(k): v for k, v in json.load(f).items()}
+                del r
+                _free(torch)
+                cfg = get_config("granite-3-8b")
+                workers = pg.init_workers(dev, model=arg)
+                params = launch_serve._placed_params(cfg, 0, dev, workers)
+                lg = _ma_teacher_forced(torch, dev, cfg, params,
+                                        _ma_requests(MA_SERVE_ARGS), one,
+                                        workers)
+                if rank == 0:
+                    torch.save(lg.cpu(), os.path.join(tmp, f"tf_{label}.pt"))
+                del params, lg
+            out[label] = res
+            dist.barrier()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _first_near_tie(one_logits, vocab, eps):
+    """Per request, the first generated position whose one-process top-2
+    logit gap is at most ``eps`` (n_new where there is none)."""
+    top2 = one_logits[..., :vocab].topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1])                    # (n_new, B)
+    n_new = gap.shape[0]
+    firsts = []
+    for b in range(gap.shape[1]):
+        hit = (gap[:, b] <= eps).nonzero()
+        firsts.append(int(hit[0]) if len(hit) else n_new)
+    return firsts
+
+
+def model_axis(torch, dev, card):
+    """The model axis executed (``dist.tensor_parallel``) on two gloo ranks
+    sharing the card. Training on (1, 2): each run's loss stream within
+    ``MA_RTOL`` of the one-process run's, each rank's resident parameter
+    bytes within ``MA_RESIDENT_RTOL`` of ``bytes_per_device``, the model
+    group's bytes a step, and K1 (9 a step), K4 and K5 (a launch a leaf
+    and step) counts on each rank. Serving granite-3-8b at full config on
+    (1, 2) and (2, 1): ``--check`` passes; the one process's and each
+    layout's teacher-forced logits along the one-process streams within
+    ``MA_LOGIT_ATOL``, and the streams equal the one process's up to the
+    first position whose one-process top-2 gap is at most twice their
+    largest difference (no closer pair can change the argmax); K1 and K2
+    counts a pool step (81 and 40) on each rank. Returns the summed
+    counts of the ranks' runs (rank 0's)."""
+    import tempfile
+    import numpy as np
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import bytes_per_device, safe_param_specs
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.mesh import make_test_layout
+    from repro_torch.launch.specs import meta_params
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import param_shapes
+    cfg = get_config("granite-3-8b").with_overrides(n_layers=2,
+                                                    dtype=MA_DTYPE)
+    n_leaves = len(param_shapes(cfg))
+    totals, rows = {}, {}
+    ones = {}
+    for label, extra in MA_TRAIN_RUNS:
+        ones[label], counts, _, _ = _run_train(torch, cfg, extra, None,
+                                               MA_TRAIN_ARGS)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        _free(torch)
+    # the one-process engine, and its teacher-forced logits
+    full = get_config("granite-3-8b")
+    rn_ops.launches = da_ops.launches = 0
+    one = launch_serve.main(MA_SERVE_ARGS)
+    totals["rmsnorm"] = totals.get("rmsnorm", 0) + rn_ops.launches
+    totals["decode_attention"] = (totals.get("decode_attention", 0)
+                                  + da_ops.launches)
+    one_streams = {int(k): v for k, v in one["results"].items()}
+    del one
+    _free(torch)
+    reqs = _ma_requests(MA_SERVE_ARGS)
+    params = M.cast_block_weights(M.init_params(full, seed=0, device=dev),
+                                  full)
+    one_lg = _ma_teacher_forced(torch, dev, full, params, reqs,
+                                one_streams, None).cpu()
+    del params
+    _free(torch)
+    shapes = meta_params(cfg)
+    layout = make_test_layout((1, 2))
+    want_resident = bytes_per_device(shapes, safe_param_specs(shapes,
+                                                              layout),
+                                     layout)
+    jobs = {label: ("train", MA_TRAIN_ARGS + extra)
+            for label, extra in MA_TRAIN_RUNS}
+    jobs.update({"serve (1, 2)": ("serve", 2), "serve (2, 1)": ("serve", 1)})
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "one_streams.json"), "w") as f:
+            json.dump({str(k): list(map(int, v))
+                       for k, v in one_streams.items()}, f)
+        t0 = time.perf_counter()
+        mp.spawn(_model_axis_rank, args=(tmp, jobs), nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        outs = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+        tf = {label: torch.load(os.path.join(tmp, f"tf_{label}.pt"))
+              for label in ("serve (1, 2)", "serve (2, 1)")}
+    norms = _train_norms(cfg)
+    for label, extra in MA_TRAIN_RUNS:
+        codec = extra[1] if extra else "none"
+        rows_n = 4                      # the dedup path's 4 blocks
+        forwards = rows_n if codec != "none" else 1
+        want = {"rmsnorm": norms * forwards * MA_STEPS,
+                "decode_attention": 0, "coded_combine": 0,
+                "quantized_combine": (n_leaves * MA_STEPS
+                                      if codec == "int8" else 0),
+                "packed_sign_combine": (n_leaves * MA_STEPS
+                                        if codec == "sign_packed" else 0)}
+        ref = np.asarray(ones[label]["losses"])
+        for r, o in enumerate(outs):
+            got = o[label]
+            s = got["summary"]
+            if s["layout"] != {"data": 1, "model": 2}:
+                raise AssertionError(f"model_axis {label}: layout "
+                                     f"{s['layout']}")
+            if got["launches"] != want:
+                raise AssertionError(f"model_axis {label} rank {r}: "
+                                     f"launch counts {got['launches']} != "
+                                     f"{want}")
+            res = s["resident_bytes"]["params"]
+            if abs(res - want_resident) > MA_RESIDENT_RTOL * want_resident:
+                raise AssertionError(f"model_axis {label} rank {r}: "
+                                     f"resident {res} B, bytes_per_device "
+                                     f"{want_resident} B")
+            loss = np.asarray(s["losses"])
+            if loss.shape != ref.shape or not np.allclose(
+                    loss, ref, rtol=MA_RTOL, atol=0):
+                raise AssertionError(f"model_axis {label} rank {r}: losses "
+                                     f"{loss} vs one process {ref}")
+        s = outs[0][label]["summary"]
+        rows[label] = {
+            "ms_per_step": s["loop_s"] / MA_STEPS * 1e3,
+            "one_process_ms_per_step": ones[label]["loop_s"] / MA_STEPS
+            * 1e3,
+            "losses": s["losses"], "one_process_losses": ones[label][
+                "losses"],
+            "loss_rel_gap": float(np.max(np.abs(np.asarray(s["losses"])
+                                                - ref) / np.abs(ref))),
+            "resident_param_bytes": [o[label]["summary"]["resident_bytes"][
+                "params"] for o in outs],
+            "bytes_per_device": want_resident,
+            "one_process_param_bytes": ones[label]["resident_bytes"][
+                "params"],
+            "model_bytes_per_step": {
+                k: v for k, v in s["collective_bytes_per_step"].items()
+                if v},
+            "peak_gb": [o[label]["peak_bytes"] / 1e9 for o in outs],
+            "launches": outs[0][label]["launches"]}
+        for k, v in outs[0][label]["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    vocab = full.vocab_size
+    for label, model in (("serve (1, 2)", 2), ("serve (2, 1)", 1)):
+        lg = tf[label]
+        err = (lg - one_lg).abs().max().item()
+        if not err <= MA_LOGIT_ATOL:
+            raise AssertionError(f"model_axis {label}: teacher-forced "
+                                 f"logits {err} from the one process's "
+                                 f"(> {MA_LOGIT_ATOL})")
+        firsts = _first_near_tie(one_lg, vocab, 2 * err)
+        for r, o in enumerate(outs):
+            got = o[label]
+            s = got["summary"]
+            if s["check_passed"] is not True:
+                raise AssertionError(f"model_axis {label} rank {r}: engine "
+                                     "streams != sequential reference")
+            steps = s["pool_steps"]
+            want = {"rmsnorm": 81 * steps, "decode_attention": 40 * steps,
+                    "coded_combine": 0, "quantized_combine": 0,
+                    "packed_sign_combine": 0}
+            if steps <= 0 or got["launches"] != want:
+                raise AssertionError(f"model_axis {label} rank {r}: launch "
+                                     f"counts {got['launches']} != {want}")
+            agree = []
+            for req, first in zip(reqs, firsts):
+                a = got["results"][str(req.uid)]
+                b = one_streams[req.uid]
+                n = next((i for i, (x, y) in enumerate(zip(a, b))
+                          if x != y), len(b))
+                if n < first:
+                    raise AssertionError(
+                        f"model_axis {label} rank {r}: request {req.uid} "
+                        f"parts from the one process at token {n}, before "
+                        f"its first near-tie at {first}")
+                agree.append(n)
+        s = outs[0][label]["summary"]
+        rows[label] = {
+            "layout": s["layout"], "slots_per_rank": s["slots_per_rank"],
+            "tokens_per_s": s["tokens_per_s"], "pool_steps": s["pool_steps"],
+            "check_passed": s["check_passed"],
+            "teacher_forced_max_abs_diff": err,
+            "max_abs_logit": one_lg.abs().max().item(),
+            "near_tie_eps": 2 * err, "first_near_tie": firsts,
+            # the tokens the stream rule held equal (those before each
+            # request's first near-tie), of all the generated ones
+            "stream_rule_tokens": sum(min(f, len(one_streams[q.uid]))
+                                      for f, q in zip(firsts, reqs)),
+            "generated_tokens": sum(len(one_streams[q.uid]) for q in reqs),
+            "agree_tokens": agree,
+            "streams_equal": sum(a == len(one_streams[q.uid])
+                                 for a, q in zip(agree, reqs)),
+            "peak_gb": [o[label]["peak_bytes"] / 1e9 for o in outs],
+            "wall_s": [o[label]["wall_s"] for o in outs],
+            "bytes_per_pool_step": {
+                k: v / max(1, s["pool_steps"]) for k, v in
+                outs[0][label]["traffic"].items() if v},
+            "launches": outs[0][label]["launches"]}
+        for k, v in outs[0][label]["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    _say("model_axis", card=card, arch="granite-3-8b", train_n_layers=2,
+         train_dtype=MA_DTYPE, steps=MA_STEPS, rtol=MA_RTOL,
+         logit_atol=MA_LOGIT_ATOL, spawn_s=spawn_s, runs=rows)
     return totals
 
 
@@ -2533,6 +2914,11 @@ def main() -> int:
     check_decode_attention(torch, dev, 8, 32, 8, 1024, 128, "float32",
                            rng.integers(1, 1025, 8).tolist(),
                            "B=8 H=32 KVH=8 S=1024 f32")
+    # the model axis's shape: granite-3-8b's heads on one of two model
+    # ranks (16 query heads over 4 KV heads, G = 4)
+    check_decode_attention(torch, dev, 8, 16, 4, 1024, 128, "bfloat16",
+                           rng.integers(1, 1025, 8).tolist(),
+                           "model axis M=2 B=8 H=16 KVH=4 S=1024 ragged")
     # the other families' shapes: pixtral-12b's head dim 160 (G = 4, the
     # tensor cores in bf16, the CUDA cores in f32), zamba2-1.2b's and
     # seamless-m4t's 64 and deepseek-moe-16b's 128 at G = 1
@@ -2633,6 +3019,10 @@ def main() -> int:
     for name, v in distributed(torch, dev, card).items():
         train_counts[name] += v
     phases["distributed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, v in model_axis(torch, dev, card).items():
+        train_counts[name] += v
+    phases["model_axis"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     family_counts = families(torch, dev)
     phases["families"] = time.perf_counter() - t0

@@ -6,6 +6,11 @@ at every level) and the sidecar holds their "/"-joined key paths and the
 step. A checkpoint written by either package therefore loads in the
 other. Atomic writes (tmp + rename, the sidecar before the ``.npz``),
 step-numbered names and latest-step discovery are the reference's.
+
+A checkpoint holds whole tensors whatever the layout that wrote it: the
+training driver gathers a rank's shards over the model group
+(``tensor_parallel.ModelShards.gather_tree``) and the data group (FSDP)
+before rank 0 writes, and shards what it restores for its own layout.
 """
 
 from __future__ import annotations

@@ -48,7 +48,31 @@ from .sweep import bernoulli_uniforms
 _INV127 = np.float32(1.0 / 127.0)
 
 
-def _none_compress(g):
+@dataclasses.dataclass(frozen=True)
+class Across:
+    """Rows held in blocks over ranks (a leaf split over the model
+    axis): a row's scale is that of the whole row, so its block's
+    reduction is finished over the ranks (``max`` and ``sum``, each an
+    all-reduce) and a mean divides by the whole row's ``width``. The
+    payload is then the codec's on the block."""
+
+    max: Callable
+    sum: Callable
+    width: int
+
+
+def _abs_max(g, across):
+    amax = g.abs().amax(dim=-1)
+    return amax if across is None else across.max(amax)
+
+
+def _abs_mean(g, across):
+    if across is None:
+        return g.abs().mean(dim=-1)
+    return across.sum(g.abs().sum(dim=-1)) / across.width
+
+
+def _none_compress(g, across=None):
     g = g.float()
     return g, torch.ones(g.shape[:-1], dtype=torch.float32,
                          device=g.device)
@@ -58,19 +82,18 @@ def _q_decompress(q, scale):
     return q.float() * scale[..., None]
 
 
-def _int8_compress(g):
+def _int8_compress(g, across=None):
     g = g.float()
-    amax = g.abs().amax(dim=-1)
+    amax = _abs_max(g, across)
     inv = torch.tensor(_INV127, device=g.device)
     scale = torch.where(amax > 0, amax * inv, torch.ones_like(amax))
     q = torch.clamp(torch.round(g / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 
 
-def _sign_compress(g):
+def _sign_compress(g, across=None):
     g = g.float()
-    scale = g.abs().mean(dim=-1)
-    return torch.sign(g).to(torch.int8), scale
+    return torch.sign(g).to(torch.int8), _abs_mean(g, across)
 
 
 def packed_width(d: int) -> int:
@@ -102,10 +125,9 @@ def unpack_signs(q: torch.Tensor, d: Optional[int] = None) -> torch.Tensor:
     return bits if d is None else bits[..., :d]
 
 
-def _sign_packed_compress(g):
+def _sign_packed_compress(g, across=None):
     g = g.float()
-    scale = g.abs().mean(dim=-1)
-    return pack_signs(g >= 0), scale
+    return pack_signs(g >= 0), _abs_mean(g, across)
 
 
 def _sign_packed_decompress(q, scale, d=None):
@@ -180,7 +202,8 @@ class Codec:
     ``wire_bits`` the container shipped (sign rides an int8 container,
     sign_packed pays its 1 bit), which ``comm_bytes_per_step`` counts.
     A ``packed`` codec's ``decompress`` takes the true component count
-    ``d``, since the trailing byte is zero-padded.
+    ``d``, since the trailing byte is zero-padded. ``compress``'s
+    ``across`` (``Across``) takes the scales over rows held in blocks.
     """
 
     name: str
@@ -192,8 +215,8 @@ class Codec:
     _np_compress: Callable = dataclasses.field(repr=False, default=None)
     _np_decompress: Callable = dataclasses.field(repr=False, default=None)
 
-    def compress(self, g):
-        return self._compress(g)
+    def compress(self, g, across: Optional[Across] = None):
+        return self._compress(g, across)
 
     def decompress(self, q, scale, d=None):
         if self.packed:

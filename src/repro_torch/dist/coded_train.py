@@ -39,6 +39,13 @@ combine over machine chunks (``streaming_chunk``), and ``dist.fsdp``
 shards the parameters and AdamW's moments over the ranks. With W = 1
 every step computes what it computes without a group, bit for bit.
 
+On a (data, model) layout each rank also holds only its model shards
+(``dist.tensor_parallel``; pass ``shards``, a ``ModelShards``): the step
+runs the model on its model group, the compressed codecs' row scales are
+those of the whole rows (reduced over the model group, so K4 and K5
+combine a rank's block of each whole row's payload), and the gradient
+norm counts a split leaf's shards once each.
+
 Per-row gradients (the reference's ``jax.vmap(jax.value_and_grad)``)
 are one backward pass per row, written into a preallocated (rows, ...)
 stack per leaf: rows are independent, so this computes the same
@@ -58,6 +65,7 @@ the code over the survivors (``elastic_coding``, seeded by
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -77,6 +85,7 @@ from repro_torch.core.assignment import (Assignment, bibd_assignment,
                                          random_matching_assignment,
                                          uncoded_assignment)
 from repro_torch.dist import process_group as pg
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels.coded_combine import ops as cc_ops
 from repro_torch.models import model as M
 from repro_torch.optim import optimizers as opt_mod
@@ -197,26 +206,35 @@ def _split(tree_of_tuples, k: int):
     return [T.map(lambda t: t[i], tree_of_tuples) for i in range(k)]
 
 
-def _quantize_rows(grads, residual, codec, error_feedback: bool):
+def _quantize_rows(grads, residual, codec, error_feedback: bool,
+                   shards=None):
     """Row-wise quantize of g (+ residual) per leaf, flat payloads.
 
     Returns (q_tree, scale_tree, new_residual_tree, shapes_tree): payload
     leaves are flat (rows, D) -- (rows, ceil(D/8)) for a packed codec --
-    and ``shapes_tree`` holds each leaf's combined-output shape.
+    and ``shapes_tree`` holds each leaf's combined-output shape. Under
+    ``shards`` a split leaf's rows are its model block, and its scales
+    are the whole rows' (``tensor_parallel.row_across``).
     """
-    def one(g, r):
+    split = ({} if shards is None or shards.size == 1 else
+             {i: shards.widths[i] for i in shards.split_leaves()})
+    widths = T.like(grads, [split.get(i) for i in
+                            range(len(T.leaves(grads)))])
+
+    def one(g, r, width):
         rows = g.shape[0]
         flat = g.reshape(rows, -1).float()
         pre = flat + r.reshape(rows, -1) if error_feedback else flat
-        q, s = codec.compress(pre)
+        q, s = codec.compress(pre, None if width is None else
+                              tp.row_across(shards.model, width))
         new_r = ((pre - codec.decompress(q, s, d=flat.shape[1]))
                  .reshape(g.shape) if error_feedback else r)
         return q, s, new_r, tuple(g.shape[1:])
-    return _split(T.map(one, grads, residual), 4)
+    return _split(T.map(one, grads, residual, widths), 4)
 
 
 def compress_combine_tree(grads, residual, w, codec, *,
-                          error_feedback: bool = True):
+                          error_feedback: bool = True, shards=None):
     """Quantize per-row gradients and run the fused combine per leaf.
 
     ``grads`` leaves carry a leading row axis (m machines or n unique
@@ -228,7 +246,7 @@ def compress_combine_tree(grads, residual, w, codec, *,
     (combined float32 tree, new residual tree).
     """
     q, s, new_r, shapes = _quantize_rows(grads, residual, codec,
-                                         error_feedback)
+                                         error_feedback, shards)
     return _compressed_allreduce(q, s, w, codec, shapes), new_r
 
 
@@ -363,13 +381,18 @@ def alpha_bar_weights(assignment: Assignment) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _finisher(optimizer, alpha_weights, dedup: bool, fsdp=None):
+def _finisher(optimizer, alpha_weights, dedup: bool, fsdp=None,
+              shards=None):
     """The shared tail of every step: optimizer update (on this rank's
-    shards under FSDP), then metrics (loss, grad_norm, extras,
-    alpha_bar) kept on the device."""
+    shards under FSDP or a model group), then metrics (loss, grad_norm,
+    extras, alpha_bar) kept on the device."""
     aw = (None if alpha_weights is None
           else torch.as_tensor(np.asarray(alpha_weights, np.float32)))
-    norm_of = opt_mod.global_norm if fsdp is None else fsdp.global_norm
+    if fsdp is None and (shards is None or shards.size == 1):
+        norm_of = opt_mod.global_norm
+    else:
+        def norm_of(grads):
+            return tp.global_norm(grads, shards, fsdp)
 
     def finish(params, opt_state, loss, grads, w, extra=None):
         updates, opt_state = optimizer.update(grads, opt_state, params)
@@ -392,15 +415,30 @@ def _comm_metric(codec, w, params):
 
 
 def _full(params, fsdp):
-    """The whole parameters for the forward: gathered under FSDP."""
+    """The parameters for the forward: gathered over the data ranks
+    under FSDP (a model group's ranks keep their model blocks)."""
     return params if fsdp is None else fsdp.gather(params)
+
+
+def _on_model_group(step, workers):
+    """``step`` run on ``workers``' model group
+    (``tensor_parallel.executing``); as it is at model = 1."""
+    model = None if workers is None else workers.model
+    if model is None or model.size == 1:
+        return step
+
+    @functools.wraps(step)
+    def run(*args, **kw):
+        with tp.executing(model):
+            return step(*args, **kw)
+    return run
 
 
 def make_train_step(cfg: ModelConfig, optimizer: opt_mod.Optimizer,
                     n_microbatches: int = 1, *, dedup: bool = False,
                     norm_scale: float = 1.0, alpha_weights=None,
                     compress=None, error_feedback: bool = True,
-                    workers=None, fsdp=None):
+                    workers=None, fsdp=None, shards=None):
     """(params, opt_state, coded_batch, w) -> (params, opt_state,
     metrics).
 
@@ -422,12 +460,14 @@ def make_train_step(cfg: ModelConfig, optimizer: opt_mod.Optimizer,
     its rows and the ranks sum them; the residual state then holds this
     rank's rows only. ``fsdp`` (a ``dist.fsdp.FSDP`` over the same
     workers) takes and returns this rank's shards of the parameters and
-    of the optimizer state.
+    of the optimizer state. On a layout with a model axis ``shards`` (a
+    ``tensor_parallel.ModelShards``) places the parameters, and the step
+    runs on ``workers.model``.
     """
     nm = int(n_microbatches)
     if nm < 1:
         raise ValueError("n_microbatches must be >= 1")
-    finish = _finisher(optimizer, alpha_weights, dedup, fsdp)
+    finish = _finisher(optimizer, alpha_weights, dedup, fsdp, shards)
 
     if compress is not None:
         if nm != 1:
@@ -456,7 +496,7 @@ def make_train_step(cfg: ModelConfig, optimizer: opt_mod.Optimizer,
             loss = _sum_loss((w_l * losses).sum(), workers, split)
             combined, new_resid = compress_combine_tree(
                 grads, comp_state["residual"], w_l, codec,
-                error_feedback=error_feedback)
+                error_feedback=error_feedback, shards=shards)
             del grads
             combined = _cross_rank(combined, workers, split, fsdp)
             params, opt_state, metrics = finish(
@@ -464,7 +504,7 @@ def make_train_step(cfg: ModelConfig, optimizer: opt_mod.Optimizer,
                 extra=_comm_metric(codec, w, params))
             return params, opt_state, {"residual": new_resid}, metrics
 
-        return compressed_step
+        return _on_model_group(compressed_step, workers)
 
     def loss_fn(p, b, wv, norm):
         if dedup:
@@ -515,7 +555,7 @@ def make_train_step(cfg: ModelConfig, optimizer: opt_mod.Optimizer,
         loss = _sum_loss(loss, workers, split)
         return finish(params, opt_state, loss, grads, w)
 
-    return step
+    return _on_model_group(step, workers)
 
 
 def make_manual_collective_train_step(cfg: ModelConfig,
@@ -524,7 +564,7 @@ def make_manual_collective_train_step(cfg: ModelConfig,
                                       error_feedback: bool = True,
                                       streaming_chunk: Optional[int]
                                       = None, *, workers=None,
-                                      fsdp=None):
+                                      fsdp=None, shards=None):
     """Replicated-path train step whose combine is the explicit
     ``coded_allreduce`` instead of autograd's fused one: each rank's
     per-machine gradients g_j are materialised (m/W x the gradient
@@ -548,7 +588,8 @@ def make_manual_collective_train_step(cfg: ModelConfig,
     """
     codec = (None if compress is None
              else compress_mod.get_codec(compress))
-    finish = _finisher(optimizer, alpha_weights, dedup=False, fsdp=fsdp)
+    finish = _finisher(optimizer, alpha_weights, dedup=False, fsdp=fsdp,
+                       shards=shards)
     chunk = None
     if streaming_chunk is not None:
         chunk = int(streaming_chunk)
@@ -595,7 +636,7 @@ def make_manual_collective_train_step(cfg: ModelConfig,
             else:
                 q_t, s_t, new_r, shapes = _quantize_rows(
                     grads, T.map(lambda x: x[t], r_xs), codec,
-                    error_feedback)
+                    error_feedback, shards)
                 del grads
                 if r_ys is None:      # the only chunk: no copy
                     r_ys = T.map(lambda r: r.unsqueeze(0), new_r)
@@ -629,13 +670,13 @@ def make_manual_collective_train_step(cfg: ModelConfig,
                 extra=_comm_metric(codec, w, params))
             return params, opt_state, {"residual": new_resid}, metrics
 
-        return compressed_step
+        return _on_model_group(compressed_step, workers)
 
     def step(params, opt_state, batch, w):
         grads, loss, _ = combine(params, batch, w, None)
         return finish(params, opt_state, loss, grads, w)
 
-    return step
+    return _on_model_group(step, workers)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """FSDP over the worker group: ``fsdp_specs`` executed.
 
 ``dist.sharding.fsdp_specs`` places each parameter leaf (and AdamW's
-``m`` and ``v`` with it) on ``Layout(data=W, model=1)``: the largest dim
-whose size divides W is split over the worker ranks, and a leaf with no
-such dim stays whole on every rank. ``FSDP`` carries those placements
-and does what GSPMD does for the reference under ``--fsdp``:
+``m`` and ``v`` with it) on the run's (data, model) layout: on top of
+``safe_param_specs``, the largest dim not taken by the model axis whose
+size divides W is split over the worker ranks, and a leaf with no such
+dim keeps its model placement. The model entry is executed by
+``dist.tensor_parallel`` (a rank holds its model block of a split
+leaf); ``FSDP`` carries the data entries, on those model blocks, and
+does what GSPMD does for the reference under ``--fsdp``:
 
 * ``shard`` keeps rank r's block of the split dim of every leaf;
 * ``gather`` all-gathers the whole leaves for the forward (freed after
@@ -16,9 +19,9 @@ and does what GSPMD does for the reference under ``--fsdp``:
   of the split leaves' shards are summed across the ranks.
 
 Per rank the resident parameter bytes are ``bytes_per_device(shapes,
-fsdp_specs(shapes, layout), layout)``. At W = 1 every leaf stays whole
-and every method is the identity, so an FSDP step is the replicated
-step bit for bit.
+fsdp_specs(shapes, layout), layout)``. At W = 1 every leaf keeps its
+model placement and every method is the identity, so an FSDP step is
+the step without FSDP bit for bit.
 """
 
 from __future__ import annotations
@@ -26,30 +29,41 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tree as T
+from repro_torch.dist import tensor_parallel
 from repro_torch.dist.sharding import fsdp_specs
 
 
-def _split_dim(spec) -> int:
-    """The dim a placement gives the worker axes, or -1 (whole). An
-    entry naming the model axis is not executed: the leaf stays whole
-    along it."""
+def _split_dim(spec, axis: str = "data") -> int:
+    """The dim a placement gives ``axis`` ("data": the worker axes, with
+    "pod"; "model": tensor parallelism), or -1 (whole along it)."""
     for d, entry in enumerate(spec):
         axes = entry if isinstance(entry, tuple) else (entry,)
-        if "data" in axes:
+        if axis in axes:
             return d
     return -1
 
 
 class FSDP:
     """The placements of one parameter tree on the worker group
-    (``process_group.Workers``); ``params`` may be the whole tensors or
-    their shapes (meta tensors)."""
+    (``process_group.Workers``); ``params`` are the whole tensors or
+    their shapes (meta tensors). The methods take and return trees of
+    model blocks (the whole leaves at model = 1)."""
 
     def __init__(self, params, workers):
         self.workers = workers
         self.specs = fsdp_specs(params, workers.layout)
         self._dims = [_split_dim(s) for s in T.leaves(self.specs)]
-        self._shapes = [tuple(p.shape) for p in T.leaves(params)]
+        msize = workers.model_size
+        self._shapes = []
+        for p, spec in zip(T.leaves(params), T.leaves(self.specs)):
+            shape = list(p.shape)
+            md = _split_dim(spec, "model")
+            if md >= 0:
+                shape[md] //= msize
+            self._shapes.append(tuple(shape))
+
+    def split_leaves(self):
+        return [i for i, d in enumerate(self._dims) if d >= 0]
 
     def _each(self, fn, tree):
         out = [fn(x, d, shape) for x, d, shape in
@@ -108,15 +122,7 @@ class FSDP:
     def global_norm(self, grads) -> torch.Tensor:
         """The whole gradient's L2 norm from this rank's shards, summed
         over leaves in ``optimizers.global_norm``'s order."""
-        parts = [torch.sum(torch.square(g.float()))
-                 for g in T.leaves(grads)]
-        split = [i for i, d in enumerate(self._dims) if d >= 0]
-        if split and self.workers.distributed:
-            vec = torch.stack([parts[i] for i in split])
-            self.workers.all_reduce_(vec)
-            for i, s in zip(split, vec.unbind()):
-                parts[i] = s
-        return torch.sqrt(sum(parts))
+        return tensor_parallel.global_norm(grads, fsdp=self)
 
     def opt_shard(self, opt_state):
         """AdamW's state with ``m`` and ``v`` sharded like the

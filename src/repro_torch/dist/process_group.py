@@ -2,31 +2,36 @@
 reference's mesh.
 
 The reference lays its devices out as a ``jax`` mesh and lets
-``shard_map`` / GSPMD move data across the worker axes. Here a run of W
-processes is one ``torch.distributed`` group, and each process is one
-worker rank:
+``shard_map`` / GSPMD move data across the mesh axes. Here a run of
+``data x model`` processes is one ``torch.distributed`` world, laid out
+row-major over the layout's axes (model fastest: rank ``d*M + mo``):
 
 * ``init_workers`` takes the default group a caller has already formed
   (a test's ranks over a ``FileStore``), or forms it from the
   ``torchrun`` environment (``WORLD_SIZE``, ``RANK``,
   ``MASTER_ADDR``/``MASTER_PORT``). With neither there is no group:
-  W = 1, and nothing crosses processes. The backend follows
+  one process, and nothing crosses processes. The backend follows
   the device: ``nccl`` for ``cuda``, ``gloo`` for ``cpu``. Nothing falls
   back: a group that fails to form raises, and a rank that dies makes
   the next collective raise on the others.
-* The layout is ``Layout(data=W, model=1)``. The model axis (tensor
-  parallelism) is not executed: every rank holds whole parameter leaves
-  (or their FSDP shards over the worker axis, ``dist.fsdp``).
-  ``production=True`` builds the worker groups of the production layout
+* A rank gets its **data group** (the returned ``Workers``: the W ranks
+  that share its model coordinate), over which the coded allreduces,
+  the broadcast of w and FSDP run, and its **model group**
+  (``Workers.model``: the M ranks that share its data coordinate), over
+  which ``dist.tensor_parallel`` executes the model axis of
+  ``safe_param_specs``. Each group counts its bytes in ``traffic``
+  under its own keys (``all_reduce`` ... for the data group,
+  ``model_all_reduce`` ... for the model group).
+* ``model`` picks the layout ``(world / model, model)``;
+  ``choose_model_size`` is the reference's pick (2 when the world is
+  even and > 1). ``production=True`` takes the production layout
   (``launch.mesh.make_production_layout``: data=16 x model=16 = 256
   ranks) when the world has exactly that many ranks, and refuses any
   other world size with a ``ValueError``, as ``jax.make_mesh`` refuses
-  too few devices. A rank's worker group is then the 16 ranks that
-  share its model coordinate; with the model axis unexecuted, the 16
-  worker groups run the same computation.
+  too few devices.
 * Each rank owns machines ``[r*m/W, (r+1)*m/W)`` of the coded batch's
-  leading machine axis (the reference's block sharding of that axis):
-  ``rank_rows`` is the executed form of
+  leading machine axis, r its data coordinate (the reference's block
+  sharding of that axis): ``rank_rows`` is the executed form of
   ``dist.sharding.leading_axis_specs``. The dedup path's block axis
   falls back to every rank holding all blocks when n is not a multiple
   of W (``block_rows_split``), as the reference's ``block_shardings``
@@ -50,7 +55,8 @@ from repro_torch.launch.mesh import (Layout, make_production_layout,
 # Bytes this process handed each collective, by kind: the training CLI and
 # chip_smoke.py read them as the per-rank traffic of a step.
 traffic = {"all_reduce": 0, "broadcast": 0, "all_gather": 0,
-           "reduce_scatter": 0}
+           "reduce_scatter": 0, "model_all_reduce": 0,
+           "model_all_gather": 0, "model_reduce_scatter": 0}
 
 
 def _count(kind: str, x: torch.Tensor) -> None:
@@ -59,37 +65,62 @@ def _count(kind: str, x: torch.Tensor) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Workers:
-    """The coded workers of a run, seen from one rank: ``size`` ranks
-    (W), this process is ``rank``; ``group`` is None when W = 1."""
+    """One axis of a run's ranks, seen from one rank: ``size`` ranks,
+    this process is ``rank``; ``group`` is None when the size is 1.
+    ``axis`` names the layout axis ("data" for the coded workers,
+    "model" for tensor parallelism); a data group carries its rank's
+    model group as ``model``."""
 
     size: int = 1
     rank: int = 0
     group: Optional[object] = None
     layout: Layout = make_test_layout((1, 1))
+    axis: str = "data"
+    model: Optional["Workers"] = None
 
     @property
     def distributed(self) -> bool:
         return self.size > 1
 
-    def all_reduce_(self, x: torch.Tensor) -> torch.Tensor:
-        """SUM over the worker ranks, in place (identity at W = 1)."""
+    @property
+    def model_size(self) -> int:
+        return 1 if self.model is None else self.model.size
+
+    def _key(self, kind: str) -> str:
+        return kind if self.axis == "data" else f"{self.axis}_{kind}"
+
+    def all_reduce_(self, x: torch.Tensor, op: str = "sum"
+                    ) -> torch.Tensor:
+        """SUM (or ``op="max"``) over the ranks, in place (identity at
+        size 1)."""
         if self.distributed:
-            _count("all_reduce", x)
-            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+            _count(self._key("all_reduce"), x)
+            dist.all_reduce(x, op=(dist.ReduceOp.MAX if op == "max"
+                                   else dist.ReduceOp.SUM),
+                            group=self.group)
         return x
 
     def broadcast_(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``x`` on every rank, in place."""
         if self.distributed:
-            _count("broadcast", x)
+            _count(self._key("broadcast"), x)
             dist.broadcast(x, src=self._global(src), group=self.group)
         return x
+
+    def _staged(self, x: torch.Tensor) -> bool:
+        """gloo moves CUDA tensors through host memory anyway; its
+        tensor-to-tensor gather and scatter are taken on host copies."""
+        return x.is_cuda and dist.get_backend(self.group) == "gloo"
 
     def all_gather_(self, out: torch.Tensor, x: torch.Tensor
                     ) -> torch.Tensor:
         """Every rank's ``x`` concatenated along ``out``'s leading axis
-        (``out`` holds W times ``x``'s leading dim)."""
-        _count("all_gather", x)
+        (``out`` holds size times ``x``'s leading dim)."""
+        _count(self._key("all_gather"), x)
+        if self._staged(x):
+            host = out.new_empty(out.shape, device="cpu")
+            dist.all_gather_into_tensor(host, x.cpu(), group=self.group)
+            return out.copy_(host)
         dist.all_gather_into_tensor(out, x, group=self.group)
         return out
 
@@ -97,7 +128,12 @@ class Workers:
                         ) -> torch.Tensor:
         """This rank's block of the SUM over ranks of ``x`` (split along
         its leading axis), into ``out``."""
-        _count("reduce_scatter", x)
+        _count(self._key("reduce_scatter"), x)
+        if self._staged(x):
+            host = out.new_empty(out.shape, device="cpu")
+            dist.reduce_scatter_tensor(host, x.cpu(), op=dist.ReduceOp.SUM,
+                                       group=self.group)
+            return out.copy_(host)
         dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
                                    group=self.group)
         return out
@@ -111,20 +147,38 @@ class Workers:
 SINGLE = Workers()
 
 
+def device_of_rank(dev: torch.device) -> torch.device:
+    """Under torchrun each rank takes the card ``LOCAL_RANK``."""
+    if dev.type == "cuda" and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+    return dev
+
+
 def backend_for(device) -> str:
     """``nccl`` for a CUDA device, ``gloo`` for the CPU."""
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
-def init_workers(device, *, production: bool = False) -> Workers:
-    """The worker group of this process (see the module docstring).
+def choose_model_size(world: int) -> int:
+    """The reference's model axis on ``world`` devices: 2 when the world
+    is even and > 1, else 1 (``launch/train.py`` and ``launch/serve.py``
+    of the reference build the mesh ``(world / model, model)``)."""
+    return 2 if world > 1 and world % 2 == 0 else 1
+
+
+def init_workers(device, *, production: bool = False,
+                 model: Optional[int] = 1) -> Workers:
+    """The data group of this process, with its model group as
+    ``.model`` (see the module docstring).
 
     An already formed default group is used as it is (a caller that
     spawned the ranks itself, e.g. over a ``FileStore``); else the
     ``torchrun`` environment forms one with ``backend_for(device)``;
     with no ``WORLD_SIZE`` there the run is one process (``SINGLE``).
-    ``production`` raises ``ValueError`` for every world size but the
-    layout's."""
+    ``model`` is the model axis's size (None: ``choose_model_size``);
+    the layout is ``(world / model, model)``. ``production`` raises
+    ``ValueError`` for every world size but the layout's."""
     if not dist.is_initialized():
         if "WORLD_SIZE" not in os.environ:
             if production:
@@ -138,13 +192,19 @@ def init_workers(device, *, production: bool = False) -> Workers:
                                             torch.cuda.current_device()))
         dist.init_process_group(**kw)
     world, me = dist.get_world_size(), dist.get_rank()
-    if not production:
+    if production:
+        layout = make_production_layout()
+        if world != layout.size:
+            _refuse_production(world)
+        return layout_workers(layout, me)
+    msize = choose_model_size(world) if model is None else int(model)
+    if msize < 1 or world % msize:
+        raise ValueError(f"a model axis of {msize} does not divide the "
+                         f"{world} ranks")
+    if msize == 1:
         return Workers(size=world, rank=me, group=dist.group.WORLD,
                        layout=make_test_layout((world, 1)))
-    layout = make_production_layout()
-    if world != layout.size:
-        _refuse_production(world)
-    return _production_workers(layout, me)
+    return layout_workers(make_test_layout((world // msize, msize)), me)
 
 
 def _refuse_production(world: int) -> None:
@@ -154,18 +214,25 @@ def _refuse_production(world: int) -> None:
         f"{layout.size} ranks; this run has {world}")
 
 
-def _production_workers(layout: Layout, me: int) -> Workers:
-    """Ranks in row-major order over the layout's axes (model fastest).
-    Every rank creates every worker group, in the same order, as
-    ``dist.new_group`` requires."""
-    msize = layout.shape["model"]
+def layout_workers(layout: Layout, me: int) -> Workers:
+    """Rank ``me``'s data and model groups on ``layout``: ranks in
+    row-major order over the layout's axes (model fastest), so rank
+    ``w*M + mo`` is worker ``w`` at model coordinate ``mo``. Every rank
+    creates every group, in the same order, as ``dist.new_group``
+    requires."""
+    msize = layout.shape.get("model", 1)
     n_workers = layout.size // msize
     data_groups = [dist.new_group([w * msize + mo
                                    for w in range(n_workers)])
                    for mo in range(msize)]
+    model_groups = [dist.new_group([w * msize + mo
+                                    for mo in range(msize)])
+                    for w in range(n_workers)]
     worker, mo = divmod(me, msize)
+    model = Workers(size=msize, rank=mo, group=model_groups[worker],
+                    layout=layout, axis="model")
     return Workers(size=n_workers, rank=worker, group=data_groups[mo],
-                   layout=layout)
+                   layout=layout, model=model)
 
 
 def row_block(n: int, size: int, rank: int) -> slice:

@@ -15,9 +15,10 @@ Every rule passes through a divisibility check: a dim that does not
 divide the axis size falls back to replication, so the same rules hold
 on the 2x16x16 production layout, the (data, model) single pod and a
 one-device test layout. Nothing here places a tensor:
-``dist.process_group.rank_rows`` executes ``leading_axis_specs`` and
-``dist.fsdp`` executes ``fsdp_specs`` over a worker group; the model
-axis's placements are not executed yet.
+``dist.process_group.rank_rows`` executes ``leading_axis_specs``,
+``dist.tensor_parallel`` the model axis of ``safe_param_specs``,
+``dist.fsdp`` the data axis of ``fsdp_specs``, and ``serve.cache_pool``
+``cache_specs``.
 """
 
 from __future__ import annotations

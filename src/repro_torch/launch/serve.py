@@ -23,6 +23,15 @@ embeddings (vlm) or frame embeddings (audio), a prefill, the encoder
 output into ``cache["enc"]`` (audio), the prompts replayed through the
 decode step and ``--max-new-tokens`` greedy tokens. As in the
 reference, the prefill's logits are not carried into decoding.
+
+Under ``torchrun`` (or a group the caller formed) the engine serves over
+the worker group, on the reference's layout: ``(W/2, 2)`` on W ranks when
+W is even and > 1, else ``(W, 1)``; ``--production-mesh`` takes the
+production layout (256 ranks), ``--no-mesh`` serves on this rank alone.
+Each rank holds its parameter shards and its block of the pool's slots
+and runs the same scheduler (``serve.engine``); ``--check`` runs the
+sequential loop on the same placement and rank 0 prints the summary.
+``main(argv, cfg, model=...)`` fixes the model axis's size instead.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from repro_torch import serve as S
 from repro_torch.configs import (ARCH_IDS, CodingConfig, ModelConfig,
                                  get_config)
 from repro_torch.dist import coded_train
+from repro_torch.dist import process_group as pg
 from repro_torch.models import model as M
 
 
@@ -116,9 +126,12 @@ def _static_main(args, cfg, dev) -> dict:
     return {"tokens": gen, "summary": summary}
 
 
-def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
+def main(argv=None, cfg: Optional[ModelConfig] = None, *,
+         model: Optional[int] = None) -> dict:
     """``cfg``, a ``ModelConfig`` from a caller, replaces ``--arch`` and
-    ``--full-config`` (``--arch`` then only names the run)."""
+    ``--full-config`` (``--arch`` then only names the run). ``model``
+    fixes the model axis of the layout ``(W / model, model)`` on W ranks
+    (default: the reference's pick, ``process_group.choose_model_size``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-4b", choices=ARCH_IDS)
     ap.add_argument("--requests", type=int, default=12)
@@ -150,6 +163,11 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
     ap.add_argument("--check", action="store_true",
                     help="pin the engine streams against the "
                          "sequential-batching reference loop")
+    ap.add_argument("--no-mesh", action="store_true",
+                    help="serve on this rank alone, whatever the world")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the production layout's groups (data=16 x "
+                         "model=16 = 256 ranks)")
     ap.add_argument("--full-config", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--seed", type=int, default=0)
@@ -167,11 +185,51 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
     except ValueError as e:
         ap.error(str(e))
 
-    dev = _device.resolve(args.device)
+    dev = pg.device_of_rank(_device.resolve(args.device))
     if cfg.arch_type in ("vlm", "audio"):
         return _static_main(args, cfg, dev)
-    params = M.cast_block_weights(
-        M.init_params(cfg, seed=args.seed, device=dev), cfg)
+    formed = torch.distributed.is_initialized()
+    try:
+        if args.no_mesh and not args.production_mesh:
+            workers = pg.SINGLE
+        else:
+            try:
+                workers = pg.init_workers(
+                    dev, production=args.production_mesh, model=model)
+            except ValueError as exc:
+                ap.error(str(exc))
+        return _engine_main(args, cfg, dev, workers)
+    finally:
+        if not formed and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _placed_params(cfg, seed: int, dev, workers):
+    """This rank's parameters, made whole from ``seed`` and placed
+    (``serve.place_params``); the whole tree is freed before serving.
+    Ranks that share a card make theirs in turn, so one whole tree at a
+    time is on it."""
+    if not torch.distributed.is_initialized() or dev.type != "cuda":
+        return S.place_params(M.init_params(cfg, seed=seed, device=dev),
+                              cfg, workers)
+    cards = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(cards, str(dev))
+    me = torch.distributed.get_rank()
+    turn = cards[:me].count(cards[me])
+    params = None
+    for t in range(max(cards.count(c) for c in cards)):
+        if t == turn:
+            params = S.place_params(
+                M.init_params(cfg, seed=seed, device=dev), cfg, workers)
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    return params
+
+
+def _engine_main(args, cfg, dev, workers) -> dict:
+    lead = workers.rank == 0 and (workers.model is None
+                                  or workers.model.rank == 0)
+    params = _placed_params(cfg, args.seed, dev, workers)
     reqs = _build_requests(args, cfg)
     coding = CodingConfig(
         scheme=args.scheme, replication=args.replication,
@@ -181,12 +239,12 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
         m=args.replicas, base_ms=args.base_ms,
         deadline_ms=args.deadline_ms, straggle_ms=args.straggle_ms)
 
-    step = S.pool_step(cfg, cfg.sliding_window)
+    step = S.pool_step(cfg, cfg.sliding_window, workers)
     steps0 = step.calls
     engine = S.ServeEngine(
         cfg, params, n_slots=args.slots, max_len=args.max_len,
         coding=coding, m_replicas=args.replicas, latency=latency,
-        log_every=args.log_every)
+        log_every=args.log_every, workers=workers)
     for r in reqs:
         engine.submit(r)
     summary = engine.run()
@@ -195,7 +253,7 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
     check_passed = None
     if args.check:
         ref = S.sequential_serve(params, cfg, reqs, n_slots=args.slots,
-                                 max_len=args.max_len)
+                                 max_len=args.max_len, workers=workers)
         check_passed = all(np.array_equal(results[r.uid], ref[r.uid])
                            for r in reqs)
         if not check_passed:
@@ -211,8 +269,12 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
                            if dev.type == "cuda" else "cpu"),
                    pool_steps=step.calls - steps0,
                    check_passed=check_passed,
+                   layout=dict(workers.layout.shape),
+                   slots_per_rank=(engine.pool.rows.stop
+                                   - engine.pool.rows.start),
                    sample=results[0][:12].tolist())
-    print(json.dumps(summary))
+    if lead:
+        print(json.dumps(summary))
     return {"results": results, "summary": summary}
 
 

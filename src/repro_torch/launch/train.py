@@ -75,15 +75,28 @@ keeps them whole on every rank when the m' blocks do not split over W
 fallback); only the starting m must be a multiple of W. Rank 0 writes
 ``--event-log``.
 
-``main(argv, cfg)`` takes a ``ModelConfig`` from a caller (it then
-replaces ``--arch`` / ``--full-config``).
+The layout is the reference's: on W ranks ``(W/2, 2)`` when W is even
+and > 1, else ``(W, 1)``, and the production layout under
+``--production-mesh``; "rank" above is the data coordinate, and W the
+data axis's size. The model axis is executed (``dist.tensor_parallel``):
+each rank holds its shards of the leaves ``safe_param_specs`` splits
+(``fsdp_specs`` under ``--fsdp``) and runs the model on its model group;
+the data rank 0 of every model coordinate decodes the same w, and
+global rank 0 prints and writes. Checkpoints hold the whole tensors,
+gathered over both axes, and restore into any layout. The summary
+records the ``layout``, the bytes each group moved a step
+(``collective_bytes_per_step``, the model group's under ``model_*``)
+and each rank's resident bytes beside ``bytes_per_device``
+(``resident_bytes.params_expected``).
+
+``main(argv, cfg, model=...)`` takes a ``ModelConfig`` from a caller (it
+then replaces ``--arch`` / ``--full-config``) and the model axis's size.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -101,7 +114,9 @@ from repro_torch.data.pipeline import CodedBatcher, SyntheticLM
 from repro_torch.dist import chaos as chaos_mod
 from repro_torch.dist import coded_train, failures
 from repro_torch.dist import process_group as pg
+from repro_torch.dist import tensor_parallel
 from repro_torch.dist.fsdp import FSDP, resident_bytes
+from repro_torch.dist.sharding import bytes_per_device, safe_param_specs
 from repro_torch.models import model as M
 from repro_torch.optim import optimizers as opt_mod
 
@@ -272,25 +287,24 @@ def _shared_weights(w, m: int, workers, dev) -> np.ndarray:
     return workers.broadcast_(w_t).cpu().numpy()
 
 
-def _device_of_rank(dev: torch.device) -> torch.device:
-    """Under torchrun each rank takes the card ``LOCAL_RANK``."""
-    if dev.type == "cuda" and "LOCAL_RANK" in os.environ:
-        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
-        torch.cuda.set_device(dev)
-    return dev
-
-
-def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
+def main(argv=None, cfg: Optional[ModelConfig] = None, *,
+         model: Optional[int] = None) -> dict:
+    """``cfg``, a ``ModelConfig`` from a caller, replaces ``--arch`` and
+    ``--full-config``. ``model`` fixes the model axis of the layout
+    ``(W / model, model)`` on W ranks (default: the reference's pick,
+    ``process_group.choose_model_size``; 1 keeps the data axis alone)."""
     ap = _parser()
     args = ap.parse_args(argv)
     _check_args(ap, args)
-    dev = _device_of_rank(_device.resolve(args.device))
+    dev = pg.device_of_rank(_device.resolve(args.device))
     formed = torch.distributed.is_initialized()
     try:
         try:
-            workers = pg.init_workers(dev, production=args.production_mesh)
+            workers = pg.init_workers(dev, production=args.production_mesh,
+                                      model=model)
         except ValueError as exc:
-            ap.error(f"--production-mesh: {exc}")
+            ap.error(f"--production-mesh: {exc}" if args.production_mesh
+                     else str(exc))
         return _train(ap, args, cfg, dev, workers)
     finally:
         if not formed and torch.distributed.is_initialized():
@@ -298,7 +312,10 @@ def main(argv=None, cfg: Optional[ModelConfig] = None) -> dict:
 
 
 def _train(ap, args, cfg, dev, workers) -> dict:
-    lead = workers.rank == 0
+    # The data rank 0 of every model coordinate decodes (the same seeded
+    # host code, so the same w); global rank 0 prints and writes.
+    decoder = workers.rank == 0
+    lead = decoder and (workers.model is None or workers.model.rank == 0)
     if cfg is None:
         cfg = get_config(args.arch)
         if not args.full_config:
@@ -333,7 +350,7 @@ def _train(ap, args, cfg, dev, workers) -> dict:
     # Rank 0 samples and decodes; the others take w from its broadcast
     # and need only the assignment.
     runtime = None
-    if lead:
+    if decoder:
         runtime = coded_train.CodingRuntime(coding, m_workers,
                                             mask_source=mask_source,
                                             adaptive=adaptive, device=dev)
@@ -359,9 +376,22 @@ def _train(ap, args, cfg, dev, workers) -> dict:
     if args.ckpt_dir:
         start, params, opt_state, comp_state = _restore(
             args, params, opt_state, comp_state, compress, runtime)
-    # Placement on the ranks: FSDP shards, and the residual keeps this
-    # rank's rows (all of them where the rows stay whole).
-    fsdp = FSDP(params, workers) if args.fsdp else None
+    # Placement on the ranks: the model axis's shards
+    # (``safe_param_specs``), FSDP's shards of those over the data axis,
+    # and the residual keeps this rank's rows (all of them where the rows
+    # stay whole) of its model shards.
+    shapes = T.map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                         device="meta"), params)
+    shards = (tensor_parallel.ModelShards(shapes, workers)
+              if workers.model_size > 1 else None)
+    if shards is not None:
+        params = shards.shard(params)
+        opt_state = {k: (shards.shard(v) if k in ("m", "v") else v)
+                     for k, v in opt_state.items()}
+        if compress:
+            comp_state = {"residual": shards.shard(comp_state["residual"],
+                                                   lead=1)}
+    fsdp = FSDP(shapes, workers) if args.fsdp else None
     if fsdp is not None:
         params = fsdp.shard(params)
         opt_state = fsdp.opt_shard(opt_state)
@@ -380,7 +410,11 @@ def _train(ap, args, cfg, dev, workers) -> dict:
     if compress:
         comp_state = rank_residual(comp_state)
     resident = {"params": resident_bytes(params),
-                "opt_state": resident_bytes(opt_state)}
+                "opt_state": resident_bytes(opt_state),
+                "params_expected": bytes_per_device(
+                    shapes, (fsdp.specs if fsdp is not None else
+                             safe_param_specs(shapes, workers.layout)),
+                    workers.layout)}
 
     losses = []
     metrics_hist = []          # device scalars, flushed at log points
@@ -401,11 +435,17 @@ def _train(ap, args, cfg, dev, workers) -> dict:
         if fsdp is not None:
             state = {"params": fsdp.gather(params),
                      "opt_state": fsdp.opt_gather(opt_state)}
+        if shards is not None:
+            state = {"params": shards.gather_tree(state["params"]),
+                     "opt_state": {k: (shards.gather_tree(v)
+                                       if k in ("m", "v") else v)
+                                   for k, v in state["opt_state"].items()}}
         if compress:
-            state["compress"] = (
-                {"residual": pg.gather_rows(comp_state["residual"],
-                                            workers)}
-                if rows_split() else comp_state)
+            resid = (pg.gather_rows(comp_state["residual"], workers)
+                     if rows_split() else comp_state["residual"])
+            if shards is not None:
+                resid = shards.gather_tree(resid, lead=1)
+            state["compress"] = {"residual": resid}
         if lead:
             ckpt.save(args.ckpt_dir, state, step=step)
             print(f"saved step-{step} checkpoint to {args.ckpt_dir}")
@@ -434,14 +474,14 @@ def _train(ap, args, cfg, dev, workers) -> dict:
                     cfg, optimizer, alpha_weights=alpha_w,
                     compress=compress,
                     streaming_chunk=args.stream_chunk or None,
-                    workers=workers, fsdp=fsdp)
+                    workers=workers, fsdp=fsdp, shards=shards)
             else:
                 train_step = coded_train.make_train_step(
                     cfg, optimizer, n_microbatches=args.microbatches,
                     dedup=dedup,
                     norm_scale=coded_train.dedup_norm_scale(assignment),
                     alpha_weights=alpha_w, compress=compress,
-                    workers=workers, fsdp=fsdp)
+                    workers=workers, fsdp=fsdp, shards=shards)
             batch_np = host_batch(step)
             if compress and generation > 0:
                 # the residual's rows follow the re-drawn block axis,
@@ -459,7 +499,7 @@ def _train(ap, args, cfg, dev, workers) -> dict:
             # Observed masks (chaos) decode per step: a mask is not
             # known before its heartbeats.
             lookahead_w = None
-            if lead and not args.chaos:
+            if decoder and not args.chaos:
                 lookahead_w = coded_train.LookaheadPrefetcher(
                     runtime, pool, lookahead, args.steps - step)
             pending = None
@@ -476,13 +516,13 @@ def _train(ap, args, cfg, dev, workers) -> dict:
                 if args.chaos:
                     observed = monitor.observe(
                         step, injector.completion_times(step))
-                    if lead:
+                    if decoder:
                         runtime.mask_source.push(surv.localize(observed))
                         w, alive = runtime.step_weights()
-                elif lead:
+                elif decoder:
                     w, alive = lookahead_w.next()
                 if workers.distributed:
-                    w = _shared_weights(w if lead else None, assignment.m,
+                    w = _shared_weights(w if decoder else None, assignment.m,
                                         workers, dev)
                 wv = sw.block_weights(assignment, w) if dedup else w
                 wv = torch.from_numpy(np.asarray(wv, np.float32)).to(dev)
@@ -535,7 +575,7 @@ def _train(ap, args, cfg, dev, workers) -> dict:
                 # pure function) and need only its assignment
                 coding = coded_train.elastic_coding(
                     coding, surv.alive_count, generation)
-                if lead:
+                if decoder:
                     runtime = coded_train.elastic_reassign(
                         runtime, local, generation=generation,
                         mask_source=sw.ObservedMaskSource(
@@ -604,9 +644,10 @@ def _train(ap, args, cfg, dev, workers) -> dict:
                "compress": args.compress,
                "stream_chunk": args.stream_chunk, "fsdp": args.fsdp,
                "world_size": workers.size,
+               "layout": dict(workers.layout.shape),
                "comm_bytes_per_step": comm_bytes,
                "comm_bytes_per_step_float32": comm_bytes_f32,
-               "decode_calls": runtime.decode_calls if lead else 0,
+               "decode_calls": runtime.decode_calls if decoder else 0,
                "chaos": chaos_summary,
                "resident_bytes": resident,
                "collective_bytes_per_step": {

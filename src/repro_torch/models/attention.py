@@ -21,6 +21,16 @@ the source with no RoPE and no mask.
 
 ``attention_decode`` writes the new K/V in place (the reference blends
 a one-hot and returns a new cache) and returns the cache it was given.
+
+On a model group of M ranks (``dist.tensor_parallel``) where M divides
+both H and KVH, ``wq`` / ``wk`` / ``wv`` are column-parallel and ``wo``
+row-parallel: a rank computes H/M query heads over KVH/M KV heads (the
+group size G unchanged, its decode cache holding KVH/M heads) and one
+all-reduce sums ``wo``'s partial products. The reference splits
+features (``H*Dh``), not heads, so where M does not divide the heads a
+split cuts a head (or ``wq`` splits while ``wk`` stays whole); the
+split leaves are then gathered at use and every rank computes all
+heads.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from .layers import _dtype, apply_rope, init_linear, linear
 
@@ -259,6 +270,44 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     return _Blockwise.apply(q, k, v, causal, window, block_q, block_k)
 
 
+def local_heads(n_heads: int, n_kv_heads: int):
+    """(query heads, KV heads) a rank computes: H/M and KVH/M where a
+    model group of M splits whole heads, else all of them."""
+    M = tp.size()
+    if M > 1 and n_heads % M == 0 and n_kv_heads % M == 0:
+        return n_heads // M, n_kv_heads // M
+    return n_heads, n_kv_heads
+
+
+def _column(p, x, n_out: int):
+    """Column-parallel ``x @ w`` on this rank's output block (its block
+    of a whole bias)."""
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + tp.block_of(p["b"], n_out).to(x.dtype)
+    return y
+
+
+def _whole_rows(p, x, _n_out: int):
+    """``x @ w`` where the rank holds (or has gathered) the whole leaf."""
+    return linear(p, x)
+
+
+def _parts(p, n_heads: int, n_kv_heads: int, head_dim: int):
+    """(projections, heads run here, KV heads run here, per-rank
+    heads?): the leaves as held where the heads are this rank's, else
+    gathered at use."""
+    Hl, KVl = local_heads(n_heads, n_kv_heads)
+    if Hl != n_heads:
+        return p, Hl, KVl, True
+    hq, hkv = n_heads * head_dim, n_kv_heads * head_dim
+    return ({"wq": tp.whole_linear(p["wq"], n_out=hq),
+             "wk": tp.whole_linear(p["wk"], n_out=hkv),
+             "wv": tp.whole_linear(p["wv"], n_out=hkv),
+             "wo": tp.whole_linear(p["wo"], n_in=hq)},
+            n_heads, n_kv_heads, False)
+
+
 def attention_forward(p, x, *, n_heads: int, n_kv_heads: int,
                       head_dim: int, rope_theta: float,
                       causal: bool = True,
@@ -269,18 +318,28 @@ def attention_forward(p, x, *, n_heads: int, n_kv_heads: int,
     then come from it, with no RoPE and no mask. ``causal=False`` is the
     encoder's bidirectional self-attention (RoPE, no causal mask)."""
     B, S, _ = x.shape
-    src = x if kv is None else kv
+    p, H, KVH, mine = _parts(p, n_heads, n_kv_heads, head_dim)
+    if mine:
+        x = tp.copy_to(x)
+        src = x if kv is None else tp.copy_to(kv)
+        proj = _column
+    else:
+        src = x if kv is None else kv
+        proj = _whole_rows
     Sk = src.shape[1]
-    q = linear(p["wq"], x).reshape(B, S, n_heads, head_dim)
-    k = linear(p["wk"], src).reshape(B, Sk, n_kv_heads, head_dim)
-    v = linear(p["wv"], src).reshape(B, Sk, n_kv_heads, head_dim)
+    q = proj(p["wq"], x, n_heads * head_dim).reshape(B, S, H, head_dim)
+    k = proj(p["wk"], src, n_kv_heads * head_dim).reshape(B, Sk, KVH,
+                                                          head_dim)
+    v = proj(p["wv"], src, n_kv_heads * head_dim).reshape(B, Sk, KVH,
+                                                          head_dim)
     if kv is None:
         pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
     out = blockwise_attention(q, k, v, causal=causal and kv is None,
                               window=window)
-    return linear(p["wo"], out.reshape(B, S, n_heads * head_dim))
+    out = linear(p["wo"], out.reshape(B, S, H * head_dim))
+    return tp.reduce_from(out) if mine else out
 
 
 def attention_decode(p, x, cache, *, n_heads: int, n_kv_heads: int,
@@ -288,7 +347,8 @@ def attention_decode(p, x, cache, *, n_heads: int, n_kv_heads: int,
                      window: Optional[int] = None):
     """Single-token decode with KV cache, updated in place.
 
-    x: (B, 1, D). cache: {"k","v": (B, S, KVH, Dh), "pos": (B,) int32}.
+    x: (B, 1, D). cache: {"k","v": (B, S, KVH, Dh), "pos": (B,) int32}
+    (KVH/M heads on a model group that splits whole heads).
     Writes the new K/V at position pos (mod the cache size for
     sliding-window caches; a write past a full-attention cache is
     dropped, as the reference's one-hot blend drops it), attends over
@@ -297,9 +357,13 @@ def attention_decode(p, x, cache, *, n_heads: int, n_kv_heads: int,
     B = x.shape[0]
     k_cache, v_cache, pos = cache["k"], cache["v"], cache["pos"]
     S_cache = k_cache.shape[1]
-    q = linear(p["wq"], x).reshape(B, 1, n_heads, head_dim)
-    k_new = linear(p["wk"], x).reshape(B, n_kv_heads, head_dim)
-    v_new = linear(p["wv"], x).reshape(B, n_kv_heads, head_dim)
+    p, H, KVH, mine = _parts(p, n_heads, n_kv_heads, head_dim)
+    proj = _column if mine else _whole_rows
+    q = proj(p["wq"], x, n_heads * head_dim).reshape(B, 1, H, head_dim)
+    k_new = proj(p["wk"], x, n_kv_heads * head_dim).reshape(B, KVH,
+                                                            head_dim)
+    v_new = proj(p["wv"], x, n_kv_heads * head_dim).reshape(B, KVH,
+                                                            head_dim)
     q = apply_rope(q, pos[:, None], rope_theta)
     k_new = apply_rope(k_new[:, None], pos[:, None], rope_theta)[:, 0]
 
@@ -314,7 +378,9 @@ def attention_decode(p, x, cache, *, n_heads: int, n_kv_heads: int,
 
     lengths = torch.clamp(pos + 1, max=S_cache).to(torch.int32)
     out = decode_ops.decode_attention(q[:, 0], k_cache, v_cache, lengths)
-    out = linear(p["wo"], out.reshape(B, 1, n_heads * head_dim))
+    out = linear(p["wo"], out.reshape(B, 1, H * head_dim))
+    if mine:
+        out = tp.reduce_from(out)
     pos.add_(1)
     return out, cache
 

@@ -3,13 +3,21 @@
 Functional style, as in ``repro.models.layers``: parameters are plain
 nested dicts of tensors with the reference's key paths, and linear
 weights keep its ``(d_in, d_out)`` layout, applied as ``x @ w``.
+
+On a model group (``dist.tensor_parallel.executing``) the MLP is
+column-parallel in ``wi_gate`` / ``wi_up`` and row-parallel in ``wo``
+(one all-reduce), and the embedding is vocab-parallel where its table is
+split: a masked lookup of this rank's rows plus one all-reduce.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 
 
@@ -56,12 +64,26 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
     return {"table": table.mul_(0.02)}
 
 
-def embed(p, ids):
-    return p["table"][ids]
+def embed(p, ids, vocab: Optional[int] = None):
+    """Rows ``ids`` of the table. ``vocab``, the whole (padded) table's
+    rows, lets a model group look up a split table: each rank its own
+    rows, zeros elsewhere, summed over the group."""
+    table = p["table"]
+    if vocab is None or not tp.splits(vocab):
+        return table[ids]
+    lo, hi = tp.local_range(vocab)
+    inr = (ids >= lo) & (ids < hi)
+    rows = table[(ids - lo).clamp(0, hi - lo - 1)]
+    return tp.reduce_from(torch.where(inr[..., None], rows,
+                                      torch.zeros((), dtype=rows.dtype,
+                                                  device=rows.device)))
 
 
-def unembed(p, x):
-    """Tied unembedding: logits = x @ table^T, in float32."""
+def unembed(p, x, vocab: Optional[int] = None):
+    """Tied unembedding: logits = x @ table^T, in float32 (this rank's
+    vocabulary block where a model group splits the ``vocab`` rows)."""
+    if vocab is not None and tp.splits(vocab):
+        x = tp.copy_to(x)
     return x.float() @ p["table"].float().T
 
 
@@ -104,6 +126,14 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def mlp(p, x):
+def mlp(p, x, d_ff: Optional[int] = None):
+    """SwiGLU MLP. ``d_ff``, the whole hidden width, lets a model group
+    run it column- then row-parallel where the rule splits it."""
+    if d_ff is not None and tp.splits(d_ff):
+        x = tp.copy_to(x)
+        h = F.silu(linear(p["wi_gate"], x)) * linear(p["wi_up"], x)
+        return tp.reduce_from(linear(p["wo"], h))
+    if tp.size() > 1 and d_ff is None:
+        raise ValueError("mlp on a model group needs its whole d_ff")
     h = F.silu(linear(p["wi_gate"], x)) * linear(p["wi_up"], x)
     return linear(p["wo"], h)

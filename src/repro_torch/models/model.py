@@ -29,6 +29,17 @@ keeps a layer's input and its backward recomputes the layer, so
 training memory per layer is its residual. Decoding and prefill run
 under no grad and recompute nothing. Decode caches (KV, SSM and xLSTM
 states) are updated in place.
+
+On a model group (``dist.tensor_parallel.executing``) each rank holds
+its shards of the parameters (``tensor_parallel.shard_params``) and the
+modules run tensor-parallel (``layers``, ``attention``, ``moe``; the
+Mamba2 and xLSTM leaves are gathered at use). Where the vocabulary is
+split, the LM head yields this rank's block of the logits: the training
+loss takes its log-sum-exp over the group
+(``tensor_parallel.vocab_parallel_nll``), and ``forward``, ``prefill``
+and ``decode_step`` gather the whole logits. A rematerialised layer
+re-runs its collectives in the backward, on every rank in the same
+order.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tensor_parallel as tp
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -232,7 +244,8 @@ def _attn_block(p, x, cfg: ModelConfig, *, window, causal=True,
         x = x + attn.attention_forward(
             p["cross"], rmsnorm(p["ln_cross"], x, cfg.norm_eps),
             kv=cross_kv, **_attn_kw(cfg, None))
-    return x + mlp(p["mlp"], rmsnorm(p["ln_mlp"], x, cfg.norm_eps))
+    return x + mlp(p["mlp"], rmsnorm(p["ln_mlp"], x, cfg.norm_eps),
+                   cfg.d_ff)
 
 
 def _moe_block(p, x, cfg: ModelConfig, *, window):
@@ -240,8 +253,14 @@ def _moe_block(p, x, cfg: ModelConfig, *, window):
         p["attn"], rmsnorm(p["ln_attn"], x, cfg.norm_eps),
         **_attn_kw(cfg, window))
     y, _ = moe_mod.moe_expert_choice(
-        p["moe"], rmsnorm(p["ln_mlp"], x, cfg.norm_eps), top_k=cfg.top_k)
+        p["moe"], rmsnorm(p["ln_mlp"], x, cfg.norm_eps), top_k=cfg.top_k,
+        **_moe_widths(cfg))
     return x + y
+
+
+def _moe_widths(cfg: ModelConfig):
+    return dict(d_ff=cfg.expert_d_ff,
+                shared_d_ff=cfg.expert_d_ff * max(cfg.n_shared_experts, 1))
 
 
 def _ssm_block(p, x, cfg: ModelConfig):
@@ -253,13 +272,15 @@ def _ssm_block(p, x, cfg: ModelConfig):
 def _mlstm_block(p, x, cfg: ModelConfig):
     x = x + xlstm_mod.mlstm_forward(
         p["mlstm"], rmsnorm(p["ln"], x, cfg.norm_eps), n_heads=cfg.n_heads)
-    return x + mlp(p["mlp"], rmsnorm(p["ln_mlp"], x, cfg.norm_eps))
+    return x + mlp(p["mlp"], rmsnorm(p["ln_mlp"], x, cfg.norm_eps),
+                   2 * cfg.d_model)
 
 
 def _slstm_block(p, x, cfg: ModelConfig):
     x = x + xlstm_mod.slstm_forward(
         p["slstm"], rmsnorm(p["ln"], x, cfg.norm_eps))
-    return x + mlp(p["mlp"], rmsnorm(p["ln_mlp"], x, cfg.norm_eps))
+    return x + mlp(p["mlp"], rmsnorm(p["ln_mlp"], x, cfg.norm_eps),
+                   2 * cfg.d_model)
 
 
 def _segments(cfg: ModelConfig):
@@ -337,11 +358,21 @@ def encode(params, src_embeds, cfg: ModelConfig) -> torch.Tensor:
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
-def _lm_head(params, x, cfg: ModelConfig) -> torch.Tensor:
-    """float32 logits, as the reference computes them."""
+def _lm_head(params, x, cfg: ModelConfig, *,
+             whole: bool = True) -> torch.Tensor:
+    """float32 logits, as the reference computes them. Where a model
+    group splits the vocabulary, ``whole=False`` keeps this rank's block
+    of them."""
+    vocab = cfg.padded_vocab()
     if cfg.tie_embeddings:
-        return unembed(params["embed"], x)
-    return x.float() @ params["lm_head"]["w"].float()
+        logits = unembed(params["embed"], x, vocab)
+    else:
+        if tp.splits(vocab):
+            x = tp.copy_to(x)
+        logits = x.float() @ params["lm_head"]["w"].float()
+    if whole and tp.splits(vocab):
+        logits = tp.gather(logits, -1)
+    return logits
 
 
 def forward_hidden(params, tokens, cfg: ModelConfig, *,
@@ -354,7 +385,7 @@ def forward_hidden(params, tokens, cfg: ModelConfig, *,
     _check_arch(cfg)
     window = window if window is not None else cfg.sliding_window
     dt = _dtype(cfg.dtype)
-    x = embed(params["embed"], tokens).to(dt)
+    x = embed(params["embed"], tokens, cfg.padded_vocab()).to(dt)
     if prefix is not None:
         x = torch.cat([prefix.to(dt), x], dim=1)
     enc = encode(params, src, cfg) if src is not None else None
@@ -380,19 +411,27 @@ def train_loss(params, batch, cfg: ModelConfig, *,
     losses add like the paper's f = sum_i f_i. ``per_example`` returns
     per-sequence sums (B,)."""
     prefix = batch.get("prefix")
-    logits = forward(params, batch["tokens"], cfg, prefix=prefix,
-                     src=batch.get("src"))
+    logits = _lm_head(params, forward_hidden(params, batch["tokens"], cfg,
+                                             prefix=prefix,
+                                             src=batch.get("src")),
+                      cfg, whole=False)
     if prefix is not None:
         logits = logits[:, prefix.shape[1]:]
     labels = batch["labels"].long()
     vocab = cfg.padded_vocab()
+    split = tp.splits(vocab)
     if vocab != cfg.vocab_size:
-        vmask = torch.arange(vocab, device=logits.device) < cfg.vocab_size
+        lo = tp.local_range(vocab)[0] if split else 0
+        vmask = (torch.arange(logits.shape[-1], device=logits.device)
+                 + lo) < cfg.vocab_size
         logits = torch.where(vmask, logits, -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1,
-                          labels.clamp(min=0)[..., None])[..., 0]
-    ll = picked - lse
+    if split:
+        ll = tp.vocab_parallel_nll(logits, labels.clamp(min=0), vocab)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              labels.clamp(min=0)[..., None])[..., 0]
+        ll = picked - lse
     mask = (labels >= 0).float()
     loss = -(ll * mask)
     if per_example:
@@ -430,14 +469,17 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
       output that cross-attention reads (set it with ``encode``).
 
     ``max_len`` is the KV capacity (window size for sliding-window
-    configs); ``pos`` pre-fills the cache position."""
+    configs); ``pos`` pre-fills the cache position. On a model group
+    that splits whole heads the KV leaves hold this rank's KVH/M."""
     _check_arch(cfg)
     device = _device.resolve(device)
     at = cfg.arch_type
     kv_len = min(max_len, cfg.sliding_window or max_len)
 
+    kv_heads = attn.local_heads(cfg.n_heads, cfg.n_kv_heads)[1]
+
     def kv(n):
-        return attn.init_cache(batch, kv_len, cfg.n_kv_heads, cfg.head_dim,
+        return attn.init_cache(batch, kv_len, kv_heads, cfg.head_dim,
                                cfg.dtype, pos=pos, device=device,
                                lead=(n,))
     if at in ("dense", "vlm", "moe"):
@@ -471,7 +513,7 @@ def _attn_block_decode(p, x, cache, cfg: ModelConfig, *, window,
         x = x + attn.attention_forward(
             p["cross"], rmsnorm(p["ln_cross"], x, cfg.norm_eps), kv=enc,
             causal=False, **_attn_kw(cfg, None))
-    x = x + mlp(p["mlp"], rmsnorm(p["ln_mlp"], x, cfg.norm_eps))
+    x = x + mlp(p["mlp"], rmsnorm(p["ln_mlp"], x, cfg.norm_eps), cfg.d_ff)
     return x, cache
 
 
@@ -486,7 +528,7 @@ def _moe_block_decode(p, x, cache, cfg: ModelConfig, *, window):
     y, _ = moe_mod.moe_expert_choice(
         p["moe"], rmsnorm(p["ln_mlp"], x, cfg.norm_eps),
         top_k=cfg.top_k, capacity_factor=float(cfg.n_experts) /
-        max(cfg.top_k, 1))
+        max(cfg.top_k, 1), **_moe_widths(cfg))
     return x + y, cache
 
 
@@ -496,7 +538,8 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
     float32, cache), the cache updated in place."""
     _check_arch(cfg)
     window = window if window is not None else cfg.sliding_window
-    x = embed(params["embed"], token[:, None]).to(_dtype(cfg.dtype))
+    x = embed(params["embed"], token[:, None],
+              cfg.padded_vocab()).to(_dtype(cfg.dtype))
     at = cfg.arch_type
     if at in ("dense", "vlm", "moe", "audio"):
         enc = cache["enc"] if at == "audio" else None
@@ -534,10 +577,12 @@ def decode_step(params, token, cache, cfg: ModelConfig, *,
                     n_heads=cfg.n_heads)
                 x = x + y
                 x = x + mlp(mp["mlp"], rmsnorm(mp["ln_mlp"], x,
-                                               cfg.norm_eps))
+                                               cfg.norm_eps),
+                            2 * cfg.d_model)
             y, _ = xlstm_mod.slstm_decode(
                 sp["slstm"], rmsnorm(sp["ln"], x, cfg.norm_eps), ss)
             x = x + y
-            x = x + mlp(sp["mlp"], rmsnorm(sp["ln_mlp"], x, cfg.norm_eps))
+            x = x + mlp(sp["mlp"], rmsnorm(sp["ln_mlp"], x, cfg.norm_eps),
+                        2 * cfg.d_model)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _lm_head(params, x, cfg)[:, 0], cache

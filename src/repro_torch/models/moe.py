@@ -18,15 +18,22 @@ run:
   float atomics, whose order changes from run to run. Here each
   expert's outputs reach their tokens through a one-hot (B, S, E*C)
   matrix product, a sum in a fixed order on every device.
+
+On a model group the expert stacks split ``w_gate`` / ``w_up`` on their
+last dim and ``w_down`` on dim -2 (``safe_param_specs``): each rank runs
+every expert on its block of the hidden width, and one all-reduce sums
+the experts' partial outputs back at the token positions. The router
+stays whole, and its routing is computed alike on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import tensor_parallel as tp
 from .layers import _dtype, init_linear, init_mlp, linear, mlp
 
 
@@ -61,11 +68,14 @@ def top_k_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_expert_choice(p, x, *, top_k: int, capacity_factor: float = 1.0
+def moe_expert_choice(p, x, *, top_k: int, capacity_factor: float = 1.0,
+                      d_ff: Optional[int] = None,
+                      shared_d_ff: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-choice MoE forward. x: (B, S, D). Returns (y, aux_loss);
     the capacity per expert is C = int(S * top_k * capacity_factor) // E
-    (at least 1)."""
+    (at least 1). ``d_ff`` and ``shared_d_ff``, the whole expert and
+    shared-expert widths, let a model group split them."""
     B, S, D = x.shape
     E = p["router"]["w"].shape[-1]
     C = max(1, int(S * top_k * capacity_factor) // E)
@@ -73,7 +83,13 @@ def moe_expert_choice(p, x, *, top_k: int, capacity_factor: float = 1.0
     logits = linear(p["router"], x).float()                  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     gates, idx = top_k_stable(probs.transpose(1, 2), C)       # (B, E, C)
-    xg = x[torch.arange(B, device=x.device)[:, None, None], idx]
+    if tp.size() > 1 and d_ff is None:
+        raise ValueError("moe on a model group needs its whole d_ff")
+    split = d_ff is not None and tp.splits(d_ff)
+    xe = tp.copy_to(x) if split else x
+    if split:
+        gates = tp.copy_to(gates)
+    xg = xe[torch.arange(B, device=x.device)[:, None, None], idx]
     h = F.silu(torch.einsum("becd,edf->becf", xg,
                             p["w_gate"].to(x.dtype))) * \
         torch.einsum("becd,edf->becf", xg, p["w_up"].to(x.dtype))
@@ -83,16 +99,24 @@ def moe_expert_choice(p, x, *, top_k: int, capacity_factor: float = 1.0
     onehot = x.new_zeros(B, E * C, S).scatter_(
         2, idx.reshape(B, E * C, 1), 1.0)                      # (B, EC, S)
     y = onehot.transpose(1, 2) @ yo.reshape(B, E * C, D)
+    if split:
+        y = tp.reduce_from(y)
     if "shared" in p:
-        y = y + mlp(p["shared"], x)
+        y = y + mlp(p["shared"], x, shared_d_ff)
     return y, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def moe_token_choice_dense(p, x, *, top_k: int
+def moe_token_choice_dense(p, x, *, top_k: int, d_ff: Optional[int] = None,
+                           shared_d_ff: Optional[int] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k token-choice router with *dense* expert compute (every
     expert runs on every token; the combine masks to the top k). O(E)
-    compute, smoke scale only. Returns (y, Switch-style aux loss)."""
+    compute, smoke scale only. Returns (y, Switch-style aux loss). On a
+    model group the expert stacks are gathered at use (``d_ff``)."""
+    if d_ff is not None:
+        p = dict(p, w_gate=tp.whole(p["w_gate"], -1, d_ff),
+                 w_up=tp.whole(p["w_up"], -1, d_ff),
+                 w_down=tp.whole(p["w_down"], -2, d_ff))
     E = p["router"]["w"].shape[-1]
     logits = linear(p["router"], x).float()                  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
@@ -106,7 +130,7 @@ def moe_token_choice_dense(p, x, *, top_k: int
     yo = torch.einsum("besf,efd->besd", h, p["w_down"].to(x.dtype))
     y = torch.einsum("bse,besd->bsd", combine.to(x.dtype), yo)
     if "shared" in p:
-        y = y + mlp(p["shared"], x)
+        y = y + mlp(p["shared"], x, shared_d_ff)
     frac_tokens = mask.mean(dim=(0, 1))                      # (E,)
     frac_probs = probs.mean(dim=(0, 1))
     aux = E * torch.sum(frac_tokens * frac_probs)

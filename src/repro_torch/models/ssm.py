@@ -17,6 +17,10 @@ masked difference exceeds float32's exp range (the reference's
 
 Autograd keeps the (B, nc, Q, Q, H) intra-chunk tensors of every layer
 (the reference rematerialises them under ``jax.checkpoint``).
+
+On a model group the split projections (``xz_proj``, ``bcdt_proj``,
+``out_proj``, by ``safe_param_specs``) are gathered at use and every rank
+runs all heads: executing Mamba2's split heads locally is left to do.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import tensor_parallel as tp
 from .layers import _dtype, init_linear, linear
 
 
@@ -49,6 +54,18 @@ def init_ssm(gen: torch.Generator, d_model: int, d_state: int, *,
         "out_proj": init_linear(gen, d_inner, d_model, dtype=dtype,
                                 lead=lead),
     }
+
+
+def _whole(p, d_model: int, d_state: int, expand: int, head_p: int):
+    """The block's linears whole (gathered at use on a model group)."""
+    if tp.size() == 1:
+        return p
+    d_inner = expand * d_model
+    return dict(p,
+                xz_proj=tp.whole_linear(p["xz_proj"], n_out=2 * d_inner),
+                bcdt_proj=tp.whole_linear(
+                    p["bcdt_proj"], n_out=2 * d_state + d_inner // head_p),
+                out_proj=tp.whole_linear(p["out_proj"], n_in=d_inner))
 
 
 def _project(p, u, d_state):
@@ -83,6 +100,7 @@ def ssm_forward(p, u, *, d_state: int, expand: int = 2, head_p: int = 64,
     B, S, D = u.shape
     d_inner = expand * D
     H = d_inner // head_p
+    p = _whole(p, D, d_state, expand, head_p)
     x, z, Bs, Cs, dt = _project(p, u, d_state)
 
     # causal depthwise conv on x, in x's dtype
@@ -148,6 +166,7 @@ def ssm_decode(p, u, state, *, d_state: int, expand: int = 2,
     B, _, D = u.shape
     d_inner = expand * D
     H = d_inner // head_p
+    p = _whole(p, D, d_state, expand, head_p)
     x, z, Bs, Cs, dt = _project(p, u, d_state)
 
     K = p["conv_w"].shape[0]

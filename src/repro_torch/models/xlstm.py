@@ -13,6 +13,11 @@ torch has none, so ``linear_scan`` is a log-depth doubling scan
 order. The mLSTM's masked decay is exp of the masked log-decay
 differences, as in ``ssm.masked_decay``. Decode states are float32 and
 updated in place.
+
+On a model group the leaves ``safe_param_specs`` splits (the mLSTM's
+``wq`` / ``wk`` / ``wv`` / ``wo``, the sLSTM's ``wo``) are gathered at
+use and every rank runs all heads: executing the split heads locally is
+left to do.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import tensor_parallel as tp
 from .layers import init_linear, linear
 from .ssm import _pad_seq, masked_decay
 
@@ -39,9 +45,24 @@ def init_mlstm(gen: torch.Generator, d_model: int, n_heads: int,
             "w_gates": lin(2 * n_heads), "wo": lin(d_model)}
 
 
+def _whole_mlstm(p, d: int):
+    if tp.size() == 1:
+        return p
+    return dict(p, **{k: tp.whole_linear(p[k], n_out=d)
+                      for k in ("wq", "wk", "wv")},
+                wo=tp.whole_linear(p["wo"], n_in=d))
+
+
+def _whole_slstm(p, d: int):
+    if tp.size() == 1:
+        return p
+    return dict(p, wo=tp.whole_linear(p["wo"], n_in=d))
+
+
 def mlstm_forward(p, u, *, n_heads: int, chunk: int = 256) -> torch.Tensor:
     """u: (B, S, D) -> (B, S, D). Chunked decay-gated linear attention."""
     B, S, D = u.shape
+    p = _whole_mlstm(p, D)
     H = n_heads
     P = D // H
     q = linear(p["wq"], u).reshape(B, S, H, P)
@@ -106,6 +127,7 @@ def mlstm_decode(p, u, state, *, n_heads: int) -> Tuple[torch.Tensor, dict]:
     updated in place and returned."""
     B, _, D = u.shape
     H, P = n_heads, D // n_heads
+    p = _whole_mlstm(p, D)
     q = linear(p["wq"], u).reshape(B, H, P).float()
     k = (linear(p["wk"], u).reshape(B, H, P) * (P ** -0.5)).float()
     v = linear(p["wv"], u).reshape(B, H, P).float()
@@ -164,6 +186,7 @@ def linear_scan(f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def slstm_forward(p, u) -> torch.Tensor:
     """u: (B, S, D) -> (B, S, D). The diagonal cell as a linear scan."""
+    p = _whole_slstm(p, u.shape[-1])
     zifo = linear(p["w_in"], u).float()
     z, i, f, o = zifo.chunk(4, dim=-1)
     z = torch.tanh(z)
@@ -180,6 +203,7 @@ def slstm_forward(p, u) -> torch.Tensor:
 def slstm_decode(p, u, state) -> Tuple[torch.Tensor, dict]:
     """state = {"c": (B, D), "n": (B, D)} float32, updated in place and
     returned."""
+    p = _whole_slstm(p, u.shape[-1])
     zifo = linear(p["w_in"], u).float()[:, 0]
     z, i, f, o = zifo.chunk(4, dim=-1)
     z = torch.tanh(z)

@@ -21,9 +21,10 @@ are bit-identical to ``reference.sequential_serve`` under any admission
 order.
 """
 
-from .cache_pool import CachePool
+from .cache_pool import CachePool, slot_rows
 from .coded import CodedPrefillLayer, ShardService, UncodedPrefillLayer
-from .engine import PoolStep, ServeEngine, pool_step, validate_budget
+from .engine import (PoolStep, ServeEngine, place_params, pool_step,
+                     validate_budget)
 from .latency import (ReplicaLatencyModel, percentile_row,
                       simulate_shard_ttft)
 from .reference import sequential_serve
@@ -34,6 +35,7 @@ __all__ = [
     "CachePool", "CodedPrefillLayer", "ContinuousScheduler",
     "IterationPlan", "PoolStep", "ReplicaLatencyModel", "Request",
     "ServeEngine", "SequentialScheduler", "ShardService",
-    "UncodedPrefillLayer", "percentile_row", "pool_step",
-    "sequential_serve", "simulate_shard_ttft", "validate_budget",
+    "UncodedPrefillLayer", "percentile_row", "place_params", "pool_step",
+    "sequential_serve", "simulate_shard_ttft", "slot_rows",
+    "validate_budget",
 ]

@@ -14,6 +14,14 @@ Rows are independent through every kernel of the step (per-row KV
 write positions, per-row norms and attention), so the same step at the
 same pool width produces bit-identical per-request token streams under
 any admission order. Port of ``repro.serve.engine``.
+
+Over a worker group (``workers``: the data group, with its model group)
+every rank runs the same host scheduler and coded prefill (the same
+seed), holds its shards of the parameters (``safe_param_specs``, the
+reference's ``device_put``) and its block of the pool's slots
+(``cache_specs``), and decodes those slots on its model group; the new
+tokens are all-gathered over the data group, so every scheduler sees
+the same streams.
 """
 
 from __future__ import annotations
@@ -28,9 +36,11 @@ import torch
 
 from repro_torch.configs import CodingConfig, ModelConfig
 from repro_torch.dist import coded_train
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch import tree as T
 from repro_torch.models import model as M
 
-from .cache_pool import CachePool
+from .cache_pool import CachePool, slot_rows
 from .coded import CodedPrefillLayer, UncodedPrefillLayer
 from .latency import ReplicaLatencyModel
 from .scheduler import ContinuousScheduler, Request
@@ -65,30 +75,55 @@ def validate_budget(cfg: ModelConfig, prompt_len: int,
 
 
 class PoolStep:
-    """The fixed-width pool step. ``calls`` counts the steps taken."""
+    """The fixed-width pool step. ``calls`` counts the steps taken.
 
-    def __init__(self, cfg: ModelConfig, window: Optional[int]):
+    It takes and returns whole-width token rows; over a worker group it
+    steps this rank's slots (``cache_pool.slot_rows``) on its model
+    group and all-gathers the new tokens over the data ranks."""
+
+    def __init__(self, cfg: ModelConfig, window: Optional[int],
+                 workers=None):
         self.serve_step = coded_train.make_serve_step(cfg, window=window)
         self.vocab = cfg.vocab_size
+        self.workers = workers
         self.calls = 0
 
     @torch.no_grad()
     def __call__(self, params, cache, prev_tok, forced_tok, use_forced,
                  alpha):
         tok = torch.where(use_forced, forced_tok, prev_tok)
-        logits, cache = self.serve_step(params, tok, cache)
-        scores = alpha[:, None] * logits[:, :self.vocab]
+        w = self.workers
+        rows = slot_rows(tok.shape[0], w)
+        with tp.executing(None if w is None else w.model):
+            logits, cache = self.serve_step(params, tok[rows], cache)
+        scores = alpha[rows, None] * logits[:, :self.vocab]
         nxt = torch.argmax(scores, dim=-1).to(torch.int32)
+        if rows.stop - rows.start != tok.shape[0]:
+            nxt = w.all_gather_(torch.empty_like(tok), nxt)
         self.calls += 1
         return nxt, cache
 
 
 @functools.lru_cache(maxsize=8)
-def pool_step(cfg: ModelConfig, window: Optional[int]) -> PoolStep:
+def pool_step(cfg: ModelConfig, window: Optional[int],
+              workers=None) -> PoolStep:
     """The pool step shared (via the cache key) by the engine, the
     sequential reference loop and the tests, so all of them run the
     identical computation."""
-    return PoolStep(cfg, window)
+    return PoolStep(cfg, window, workers)
+
+
+def place_params(params, cfg: ModelConfig, workers=None):
+    """The serving parameters of this rank, from the whole tree: its
+    shards on its model group (``safe_param_specs``) when the model axis
+    is above 1, with the block weights cast once into ``cfg.dtype``.
+    Nothing of the whole tensors is kept: a shard the cast leaves in its
+    dtype is copied out of them."""
+    if workers is None or workers.model_size == 1:
+        return M.cast_block_weights(params, cfg)
+    views = tp.ModelShards(params, workers).shard(params, copy=False)
+    return T.map(lambda x, v: x.clone() if x is v else x,
+                 M.cast_block_weights(views, cfg), views)
 
 
 def params_device(params) -> torch.device:
@@ -99,7 +134,10 @@ class ServeEngine:
     """Admission queue + cache pool + coded prefill + async host loop.
 
     Runs on the device that holds ``params``. The block weights are cast
-    once into ``cfg.dtype`` here (see ``models.model.cast_block_weights``).
+    once into ``cfg.dtype`` here (see ``models.model.cast_block_weights``;
+    a no-op on placed parameters). Over a worker group (``workers``,
+    module docstring) ``params`` are this rank's, as ``place_params``
+    gives them, and ``workers`` places the pool and the step.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 8,
@@ -108,7 +146,7 @@ class ServeEngine:
                  m_replicas: int = 8,
                  latency: Optional[ReplicaLatencyModel] = None,
                  scheduler: Optional[ContinuousScheduler] = None,
-                 log_every: int = 16):
+                 log_every: int = 16, workers=None):
         if cfg.arch_type in ("vlm", "audio"):
             raise ValueError(
                 f"arch_type {cfg.arch_type!r} needs a per-request "
@@ -116,11 +154,12 @@ class ServeEngine:
         self.cfg = cfg
         self.window = cfg.sliding_window
         self.device = params_device(params)
-        self.pool = CachePool(cfg, n_slots, max_len, device=self.device)
+        self.pool = CachePool(cfg, n_slots, max_len, device=self.device,
+                              workers=workers)
         self.scheduler = scheduler or ContinuousScheduler(n_slots)
         if self.scheduler.n_slots != n_slots:
             raise ValueError("scheduler width != n_slots")
-        self.step_fn = pool_step(cfg, self.window)
+        self.step_fn = pool_step(cfg, self.window, workers)
         self.params = M.cast_block_weights(params, cfg)
         self.log_every = max(1, log_every)
         if coding is not None and coding.scheme != "uncoded":

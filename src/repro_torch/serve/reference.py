@@ -19,23 +19,28 @@ import torch
 
 from repro_torch.models import model as M
 
+from .cache_pool import CachePool
 from .engine import params_device, pool_step
 from .scheduler import Request
 
 
 def sequential_serve(params, cfg, requests: List[Request], *,
                      n_slots: int, max_len: int,
-                     window: Optional[int] = None
+                     window: Optional[int] = None, workers=None
                      ) -> Dict[int, np.ndarray]:
+    """``workers`` runs it on the engine's placement over a worker group
+    (the same pool step and slot split); ``params`` are then this rank's,
+    as ``engine.place_params`` gives them."""
     window = window if window is not None else cfg.sliding_window
-    step_fn = pool_step(cfg, window)
+    step_fn = pool_step(cfg, window, workers)
     params = M.cast_block_weights(params, cfg)
     dev = params_device(params)
     ones = torch.ones(n_slots, dtype=torch.float32, device=dev)
     out: Dict[int, list] = {r.uid: [] for r in requests}
     for g0 in range(0, len(requests), n_slots):
         group = requests[g0:g0 + n_slots]
-        cache = M.init_decode_cache(cfg, n_slots, max_len, device=dev)
+        cache = CachePool(cfg, n_slots, max_len, device=dev,
+                          workers=workers).cache
         prev = torch.zeros(n_slots, dtype=torch.int32, device=dev)
         consumed = [0] * len(group)
         emitted = [0] * len(group)

@@ -419,7 +419,8 @@ _ONE_PROCESS = {}
 
 
 def _driver(rank, world, argv):
-    return ttrain.main(argv)
+    # the data axis alone: layout (2, 1)
+    return ttrain.main(argv, model=1)
 
 
 def _without_rebuild_s(chaos):

@@ -31,6 +31,15 @@ CPU = "cpu"
 SCHEMES = ("expander", "frc", "uncoded", "cyclic_mds", "random_regular")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: the suite's other workers share the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _coding(cls, **kw):
     kw.setdefault("scheme", "expander")
     kw.setdefault("replication", 2)

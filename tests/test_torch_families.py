@@ -51,6 +51,15 @@ FAMILIES = [
 IDS = [f"{a}{'-' + str(len(o)) if o else ''}" for a, o in FAMILIES]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: the suite's other workers share the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfgs(arch, over):
     return (rget(arch).smoke_variant().with_overrides(**over),
             tget(arch).smoke_variant().with_overrides(**over))

@@ -43,6 +43,15 @@ FAMILIES = [
 IDS = [a for a, _ in FAMILIES]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: the suite's other workers share the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _setup(arch, over):
     rcfg = rget(arch).smoke_variant().with_overrides(**over)
     tcfg = tget(arch).smoke_variant().with_overrides(**over)

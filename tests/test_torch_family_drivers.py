@@ -49,6 +49,15 @@ STEPS = 6
 NEAR_TIE = 1e-6       # relative top-C gap within float32 reduction noise
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: the suite's other workers share the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def deterministic():
     before = torch.are_deterministic_algorithms_enabled()

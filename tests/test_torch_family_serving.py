@@ -2,13 +2,14 @@
 
 - moe, hybrid and ssm go through the continuous-batching engine: the
   port's engine against the reference's on the same carried parameters
-  (float32 smoke variants) and the same requests, and the serve CLI with
-  ``--device cpu --check`` (engine streams equal to the sequential
-  reference loop, bit for bit).
+  (float32 smoke variants) and the same requests.
 - vlm and audio take the static-batch path, as in the reference:
   ``launch.serve.static_generate`` against the reference's
   ``prefill`` / ``encode`` / ``decode_step`` loop on the same carried
-  parameters and inputs, and the CLI's static summary.
+  parameters and inputs.
+
+The serve CLI's runs of these families are in
+``test_torch_family_serving_cli.py``.
 
 Greedy tokens come from float32 logits that agree to ``LOGIT_TOL``;
 streams must be equal unless the reference's top-2 logit gap at the
@@ -16,10 +17,6 @@ first differing step is itself below that tolerance (a near-tie, which
 then has to be shown), as tests/test_torch_serve.py holds the dense
 family.
 """
-
-import contextlib
-import io
-import json
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +37,15 @@ LOGIT_TOL = 1e-4
 ENGINE = [("deepseek-moe-16b", {}),
           ("zamba2-1.2b", {"n_layers": 4, "attn_positions": (1, 3)}),
           ("xlstm-1.3b", {"n_layers": 4, "slstm_ratio": 1})]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: the suite's other workers share the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _setup(arch, over):
@@ -102,24 +108,6 @@ def test_engine_streams_match_jax_engine(arch, over):
                 f"near-tie (reference top-2 gap {gap})")
 
 
-def _cli(*args):
-    """The serve CLI's ``main`` in this process (tests/test_torch_serve.py
-    runs the module as a subprocess); returns its printed summary."""
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        tserve.main(["--device", "cpu", *args])
-    return json.loads(buf.getvalue().strip().splitlines()[-1])
-
-
-@pytest.mark.parametrize("arch", [a for a, _ in ENGINE])
-def test_serve_cli_checks_engine_families_on_cpu(arch):
-    s = _cli("--arch", arch, "--requests", "6", "--max-new-tokens", "4",
-             "--check")
-    assert s["path"] == "engine" and s["arch"] == arch
-    assert s["check_passed"] is True and s["device"] == "cpu"
-    assert s["new_tokens"] == 24 and s["pool_steps"] > s["iterations"] > 0
-
-
 def _reference_static(rcfg, tree, prompts, side, max_len, new):
     """The reference's ``_static_main`` loop (src/repro/launch/serve.py:
     53-103) on given parameters and inputs."""
@@ -169,14 +157,6 @@ def test_static_path_matches_reference_loop(arch):
     else:      # only a near-tie of the reference may split the streams
         b, idx = (int(i[0]) for i in np.nonzero(t_tok != r_tok))
         assert _gap(r_logits[idx][b], rcfg.vocab_size) < LOGIT_TOL
-
-
-@pytest.mark.parametrize("arch", ["pixtral-12b", "seamless-m4t-large-v2"])
-def test_serve_cli_static_path_on_cpu(arch):
-    s = _cli("--arch", arch, "--slots", "3", "--max-new-tokens", "4")
-    assert s["path"] == "static" and s["arch"] == arch
-    assert s["requests"] == 3 and s["new_tokens"] == 12
-    assert s["device"] == "cpu" and len(s["sample"]) == 4
 
 
 @pytest.mark.parametrize("arch", ["pixtral-12b", "seamless-m4t-large-v2"])

@@ -63,6 +63,7 @@ def test_every_module_imports_without_jax_or_repro():
                 "repro_torch.launch.step_analysis",
                 "repro_torch.dist.sharding",
                 "repro_torch.dist.process_group", "repro_torch.dist.fsdp",
+                "repro_torch.dist.tensor_parallel",
                 "repro_torch.benchmarks.run",
                 "repro_torch.benchmarks.kernel_bench",
                 "repro_torch.benchmarks.serve_bench",
@@ -106,7 +107,7 @@ def test_port_layout_mirrors_reference():
              "launch": {"step_profile", "timing", "harness",
                         "step_analysis"},
              "kernels": {"build", "_launch"},
-             "dist": {"process_group", "fsdp"}}
+             "dist": {"process_group", "fsdp", "tensor_parallel"}}
     for sub in ("core", "models", "serve", "dist", "launch", "data",
                 "optim", "checkpoint", "kernels"):
         port = {m.name for m in pkgutil.iter_modules(

@@ -25,6 +25,15 @@ KEY = jax.random.PRNGKey(0)
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: the suite's other workers share the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _carry(tree):
     return T.map(lambda a: torch.from_numpy(np.array(a)),
                  jax.tree.map(np.asarray, tree))

@@ -34,6 +34,15 @@ BF16_TOL = dict(atol=5e-2, rtol=5e-2)
 B, STEPS = 3, 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: the suite's other workers share the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfgs(arch, **over):
     return (rget(arch).smoke_variant().with_overrides(**over),
             tget(arch).smoke_variant().with_overrides(**over))

@@ -37,6 +37,15 @@ LOGIT_TOL = 1e-4
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: the suite's other workers share the host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def dense():
     """granite-3-8b smoke with GQA (G = 2), float32, params from JAX."""
@@ -174,7 +183,10 @@ def test_cache_pool_reset_zeroes_only_masked_slots(dense):
 
 
 def test_launch_serve_cli_on_cpu():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # two torch threads, as the in-process tests: the suite's other
+    # workers share the host
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="2")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device",
          "cpu", "--arch", "granite-3-8b", "--requests", "6",

@@ -12,22 +12,15 @@ reason:
   ``b ** step`` and the square root may round differently by an ulp;
 - port-internal identities (autograd == explicit combine, dedup ==
   replicated, manual == autograd, microbatched == single shot): the
-  reference tests' tolerances (tests/test_dist.py, tests/test_dedup.py);
-- train-step trajectories against the reference, 3 AdamW steps: losses
-  rtol 1e-4; 99.9 % of the parameters within rtol 2e-3 / atol 5e-4
-  (tests/test_dedup.py's trajectory tolerance) and all of them within
-  atol 2 lr per step. Adam divides by sqrt(v): where a gradient entry is
-  near zero, float32 rounding (or, under int8 and sign_packed, one
-  flipped quantized value or sign bit) can turn into an update of the
-  other sign, an lr-sized difference on that entry alone;
-- the drivers' loss streams from one params-only checkpoint: rtol 1e-4
-  (measured ~2e-5 on the int8 path).
-"""
+  reference tests' tolerances (tests/test_dist.py, tests/test_dedup.py).
 
-import json
-import os
-import subprocess
-import sys
+The rest of the slice's pins sit in files of their own, so that the
+suite's workers run them side by side: the train-step trajectories
+(``test_torch_train_trajectory_{dedup,replicated,manual}.py``), the
+host runtime and checkpoints (``test_torch_train_runtime.py``) and the
+driver (``test_torch_train_driver.py``); their helpers are in
+``torch_train_common.py``.
+"""
 
 import jax
 import jax.numpy as jnp
@@ -35,73 +28,19 @@ import numpy as np
 import pytest
 import torch
 
-import repro.core.step_weights as rsw
-from repro.checkpoint import checkpoint as rckpt
-from repro.configs import CodingConfig as RCoding, get_config as rget
-from repro.core import expander_assignment as r_expander
-from repro.data.pipeline import CodedBatcher, SyntheticLM
-from repro.dist import coded_train as RT
-from repro.launch.mesh import make_test_mesh
 from repro.models import model as RM
 from repro.optim import optimizers as ropt
 from repro_torch import tree as T
-from repro_torch.checkpoint import checkpoint as tckpt
-from repro_torch.configs import CodingConfig as TCoding, get_config as tget
-from repro_torch.core import compress as tcomp
 from repro_torch.core import step_weights as tsw
 from repro_torch.core.assignment import expander_assignment as t_expander
 from repro_torch.dist import coded_train as TT
 from repro_torch.kernels.coded_combine import ops as cc_ops
-from repro_torch.launch import train as ttrain
 from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.optim import optimizers as topt
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
-TRAJ_TOL = dict(rtol=2e-3, atol=5e-4)
-
-
-def _cfgs(arch="granite-3-8b", **over):
-    return (rget(arch).smoke_variant().with_overrides(**over),
-            tget(arch).smoke_variant().with_overrides(**over))
-
-
-def _ref_params(rcfg, seed=0):
-    return jax.tree.map(np.asarray,
-                        RM.init_params(rcfg, jax.random.PRNGKey(seed)))
-
-
-def _t(x):
-    return torch.from_numpy(np.array(x))
-
-
-def _tt(tree):
-    """A NumPy / JAX tree as torch tensors on the CPU."""
-    return T.map(_t, jax.tree.map(np.asarray, tree))
-
-
-def _assert_trees(port, ref, **tol):
-    """Leaf by leaf, in the flatten order both packages share."""
-    pl, rl = T.leaves(port), jax.tree.leaves(ref)
-    assert len(pl) == len(rl)
-    assert T.paths(port) == ["/".join(str(k.key) for k in p) for p, _ in
-                             jax.tree_util.tree_flatten_with_path(ref)[0]]
-    for a, b in zip(pl, rl):
-        np.testing.assert_allclose(a.detach().float().numpy(),
-                                   np.asarray(b, np.float32), **tol)
-
-
-def _setup(name="expander", bs=3, S=16, cfg_over=None):
-    rcfg, tcfg = _cfgs(**(cfg_over or {}))
-    A = {"expander": lambda: r_expander(4, 2, vertex_transitive=False,
-                                        seed=1)}[name]()
-    batcher = CodedBatcher(A, shuffle_seed=0)
-    raw = SyntheticLM(rcfg.vocab_size, S, seed=0).batch(A.n * bs, 0)
-    coded = batcher.code_batch(raw)
-    blocks = batcher.unique_blocks(raw)
-    tree = _ref_params(rcfg)
-    return rcfg, tcfg, A, coded, blocks, tree
+from torch_train_common import (GRAD_TOL, _assert_trees, _cfgs, _ref_params,
+                                _setup, _t, _tt, _two_threads)
 
 
 # ------------------------------------------------------------- the model
@@ -298,283 +237,3 @@ def test_microbatched_step_equals_single_shot(dedup):
 
 
 # ------------------------------- train-step trajectories vs the reference
-
-@pytest.mark.parametrize("compress", [None, "int8", "sign_packed"])
-@pytest.mark.parametrize("path", ["dedup", "replicated", "manual"])
-def test_train_step_trajectory_matches_reference(compress, path):
-    rcfg, tcfg, A, _, _, tree = _setup()
-    lr = 1e-3
-    r_opt, t_opt = ropt.adamw(lr), topt.adamw(lr)
-    dedup = path == "dedup"
-    aw = RT.alpha_bar_weights(A)
-    ns = RT.dedup_norm_scale(A)
-    if path == "manual":
-        mesh = make_test_mesh((1, 1))
-        r_step = jax.jit(RT.make_manual_collective_train_step(
-            rcfg, r_opt, mesh, alpha_weights=aw, compress=compress))
-        t_step = TT.make_manual_collective_train_step(
-            tcfg, t_opt, alpha_weights=aw, compress=compress)
-    else:
-        kw = dict(dedup=dedup, norm_scale=ns, alpha_weights=aw,
-                  compress=compress)
-        r_step = jax.jit(RT.make_train_step(rcfg, r_opt, **kw))
-        t_step = TT.make_train_step(tcfg, t_opt, **kw)
-    rp = jax.tree.map(jnp.asarray, tree)
-    tp = params_from_numpy(tree, tcfg, device="cpu")
-    rs, ts = r_opt.init(rp), t_opt.init(tp)
-    rows = A.n if dedup else A.m
-    rc = RT.compress_mod.init_state(rp, rows) if compress else None
-    tc = tcomp.init_state(tp, rows) if compress else None
-    batcher = CodedBatcher(A, shuffle_seed=0)
-    src = SyntheticLM(rcfg.vocab_size, 16, seed=0)
-    rng = np.random.default_rng(1)
-    for step in range(3):
-        raw = src.batch(A.n * 2, step)
-        b = batcher.unique_blocks(raw) if dedup else batcher.code_batch(raw)
-        w = (rng.random(A.m) * (rng.random(A.m) > 0.3)).astype(np.float32)
-        wv = (A.A @ w).astype(np.float32) if dedup else w
-        rb = {k: jnp.asarray(v) for k, v in b.items()}
-        if path == "manual":
-            with make_test_mesh((1, 1)):
-                r_out = (r_step(rp, rs, rc, rb, jnp.asarray(wv))
-                         if compress else r_step(rp, rs, rb, jnp.asarray(wv)))
-        else:
-            r_out = (r_step(rp, rs, rc, rb, jnp.asarray(wv)) if compress
-                     else r_step(rp, rs, rb, jnp.asarray(wv)))
-        t_out = (t_step(tp, ts, tc, T.map(_t, b), _t(wv)) if compress
-                 else t_step(tp, ts, T.map(_t, b), _t(wv)))
-        if compress:
-            rp, rs, rc, rm = r_out
-            tp, ts, tc, tm = t_out
-            assert float(tm["comm_bytes"]) == float(rm["comm_bytes"])
-        else:
-            rp, rs, rm = r_out
-            tp, ts, tm = t_out
-        np.testing.assert_allclose(tm["loss"].item(), float(rm["loss"]),
-                                   rtol=1e-4)
-        np.testing.assert_allclose(tm["alpha_bar"].item(),
-                                   float(rm["alpha_bar"]), rtol=1e-6)
-    _assert_trees(tp, rp, rtol=0, atol=2 * lr * 3)
-    far = total = 0
-    for a, b in zip(T.leaves(tp), jax.tree.leaves(rp)):
-        d = np.abs(a.numpy() - np.asarray(b))
-        far += int((d > TRAJ_TOL["atol"] + TRAJ_TOL["rtol"]
-                    * np.abs(np.asarray(b))).sum())
-        total += d.size
-    assert far <= 1e-3 * total, (far, total)
-
-
-# ---------------------------------------------------- host runtime
-
-@pytest.mark.parametrize("scheme", ["expander", "frc", "uncoded"])
-@pytest.mark.parametrize("model", ["bernoulli", "markov", "adversarial"])
-def test_coding_runtime_streams_bit_identical(scheme, model):
-    kw = dict(scheme=scheme, replication=2, decoding="optimal",
-              straggler_model=model, straggler_p=0.25, seed=3)
-    r = RT.CodingRuntime(RCoding(**kw), 8)
-    t = TT.CodingRuntime(TCoding(**kw), 8)
-    assert t.scale == r.scale
-    for _ in range(4):
-        (rw, ra), (tw, ta) = r.step_weights(), t.step_weights()
-        np.testing.assert_array_equal(ra, ta)
-        np.testing.assert_array_equal(rw, tw)
-        assert tw.dtype == np.float32
-    r.skip(3)
-    t.skip(3)
-    (rW, rA), (tW, tA) = r.weights_lookahead(6), t.weights_lookahead(6)
-    np.testing.assert_array_equal(rA, tA)
-    np.testing.assert_array_equal(rW, tW)
-    np.testing.assert_array_equal(r.block_weights(rW[0]),
-                                  t.block_weights(tW[0]))
-    assert t.decode_calls == r.decode_calls
-
-
-def test_lookahead_prefetcher_equals_per_step_stream():
-    from concurrent.futures import ThreadPoolExecutor
-    coding = TCoding(scheme="expander", replication=2, straggler_p=0.3,
-                     straggler_model="markov", seed=1)
-    per_step = TT.CodingRuntime(coding, 8)
-    want = [per_step.step_weights() for _ in range(11)]
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        pre = TT.LookaheadPrefetcher(TT.CodingRuntime(coding, 8), pool,
-                                     horizon=4, total_steps=11)
-        for w, a in want:
-            gw, ga = pre.next()
-            np.testing.assert_array_equal(gw, w)
-            np.testing.assert_array_equal(ga, a)
-        with pytest.raises(RuntimeError, match="exhausted"):
-            pre.next()
-
-
-def test_mask_sources_and_debias_match_reference():
-    rA = r_expander(12, 3, vertex_transitive=True, seed=0)
-    tA = t_expander(12, 3, vertex_transitive=True, seed=0)
-    assert tsw.debias_scale_mc(tA, p=0.3, trials=64, seed=5) == \
-        rsw.debias_scale_mc(rA, p=0.3, trials=64, seed=5)
-    alphas = np.random.default_rng(0).random((10, 6))
-    from repro.kernels.batched_alpha.ops import debias_scale
-    assert tsw.debias_scale(alphas) == debias_scale(alphas)
-    rm = rsw.make_straggler_model(rA, "markov", 0.2)
-    tm = tsw.make_straggler_model(tA, "markov", 0.2)
-    rr, tr = rsw.sample_mask_stream(rA, rm, steps=5, shuffle=True,
-                                    rng=np.random.default_rng(2)), \
-        tsw.sample_mask_stream(tA, tm, steps=5, shuffle=True,
-                               rng=np.random.default_rng(2))
-    for a, b in zip(rr, tr):
-        np.testing.assert_array_equal(a, b)
-    masks = np.random.default_rng(4).random((3, 12)) > 0.2
-    rep = tsw.ReplayedMaskSource(masks)
-    rep.skip(1)
-    np.testing.assert_array_equal(rep.next_mask(), masks[1])
-    with pytest.raises(RuntimeError, match="cannot skip"):
-        rep.skip(5)
-    obs = tsw.ObservedMaskSource(12)
-    with pytest.raises(RuntimeError, match="no observed mask"):
-        obs.next_mask()
-    obs.push(masks[2])
-    np.testing.assert_array_equal(obs.next_mask(), masks[2])
-    with pytest.raises(RuntimeError, match="fast-forwarded"):
-        obs.skip(1)
-    adapt = TT.CodingRuntime(TCoding(replication=2), 4,
-                             adaptive="adaptive")
-    assert adapt.policy is not None and adapt.decision_counts == {}
-
-
-# ------------------------------------------------------- checkpoints
-
-def _composite(tree, rcfg):
-    opt = ropt.adamw(1e-3)
-    p = jax.tree.map(jnp.asarray, tree)
-    state = opt.init(p)
-    g = jax.tree.map(lambda x: 0.1 * jnp.ones_like(x), p)
-    _, state = opt.update(g, state, p)
-    return {"params": p, "opt_state": state,
-            "compress": RT.compress_mod.init_state(p, 2)}
-
-
-def test_checkpoint_cross_loads_both_ways(tmp_path):
-    rcfg, tcfg = _cfgs()
-    ref_state = jax.tree.map(np.asarray, _composite(_ref_params(rcfg),
-                                                    rcfg))
-    # reference -> port
-    rckpt.save(str(tmp_path / "r"), ref_state, step=5)
-    assert tckpt.latest_step(str(tmp_path / "r")) == 5
-    like = T.map(_t, ref_state)
-    got = tckpt.restore(str(tmp_path / "r"), like)
-    _assert_trees(got, ref_state, rtol=0, atol=0)
-    assert got["opt_state"]["step"].dtype == torch.int32
-    # port -> reference
-    tckpt.save(str(tmp_path / "t"), got, step=7)
-    back = rckpt.restore(str(tmp_path / "t"), ref_state)
-    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(ref_state)):
-        np.testing.assert_array_equal(a, b)
-    with open(tmp_path / "t" / "ckpt_00000007.json") as f:
-        ours = json.load(f)
-    with open(tmp_path / "r" / "ckpt_00000005.json") as f:
-        theirs = json.load(f)
-    assert ours["keys"] == theirs["keys"]
-    # the driver's template list: a params-only checkpoint of reference
-    # parameters falls through to the "params" template
-    rckpt.save(str(tmp_path / "p"), ref_state["params"], step=0)
-    templates = [("compressed", like),
-                 ("composite", {k: like[k] for k in ("params",
-                                                     "opt_state")}),
-                 ("params", like["params"])]
-    label, params = tckpt.restore_any(str(tmp_path / "p"), templates)
-    assert label == "params"
-    _assert_trees(params, ref_state["params"], rtol=0, atol=0)
-    label, _ = tckpt.restore_any(str(tmp_path / "t"), templates)
-    assert label == "compressed"
-
-
-def test_restore_fallback_walks_past_a_torn_checkpoint(tmp_path):
-    tree = {"a": torch.arange(6.0).reshape(2, 3)}
-    d = str(tmp_path)
-    tckpt.save(d, tree, step=1)
-    tckpt.save(d, {"a": tree["a"] + 1}, step=2)
-    with open(os.path.join(d, "ckpt_00000002.npz"), "wb") as f:
-        f.write(b"torn")
-    step, label, state = tckpt.restore_fallback(d, [("x", tree)])
-    assert (step, label) == (1, "x")
-    assert torch.equal(state["a"], tree["a"])
-    with pytest.raises(ValueError, match="leaves"):
-        tckpt.restore(d, {"a": tree["a"], "b": tree["a"]}, step=1)
-
-
-# ------------------------------------------------------------ driver
-
-def test_driver_needs_cuda_unless_asked_for_the_cpu():
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the default device works here")
-    with pytest.raises(RuntimeError, match="--device cpu"):
-        ttrain.main(["--steps", "1"])
-
-
-@pytest.mark.parametrize("flag", [
-    (["--collective", "manual", "--stream-chunk", "3"], "divisible"),
-    (["--stream-chunk", "2"], "--collective manual"),
-    (["--chaos", "kill:1@3", "--no-dedup"], "dedup"),
-    (["--event-log", "events.json"], "--chaos"),
-    (["--production-mesh"], "needs 256 ranks"),
-    (["--chaos", "kill:1@3", "--collective", "manual"], "dedup"),
-    (["--chaos", "kill:1@3", "--ckpt-dir", "ckpt"], "--chaos"),
-    (["--collective", "manual", "--dedup"], "dedup")])
-def test_driver_refuses_later_slices_and_bad_combinations(flag, capsys):
-    argv, says = flag
-    with pytest.raises(SystemExit) as exc:
-        ttrain.main(["--device", "cpu", "--steps", "1", *argv])
-    assert says in capsys.readouterr().err + str(exc.value.code)
-
-
-def test_driver_resume_replays_the_tail(tmp_path):
-    args = ["--device", "cpu", "--steps", "4", "--seq-len", "16",
-            "--block-size", "2", "--compress", "int8", "--ckpt-dir"]
-    full = ttrain.main(args + [str(tmp_path / "a"), "--ckpt-every", "2"])
-    os.remove(tmp_path / "a" / "ckpt_00000004.npz")
-    resumed = ttrain.main(args + [str(tmp_path / "a")])
-    assert resumed["start_step"] == 2
-    assert resumed["losses"] == full["losses"][2:]
-    for key in ("first_loss", "last_loss", "losses", "start_step", "steps",
-                "m_workers", "scheme", "decoding", "path", "collective",
-                "compress", "stream_chunk", "fsdp", "comm_bytes_per_step",
-                "comm_bytes_per_step_float32", "decode_calls", "chaos"):
-        assert key in full
-
-
-def _env():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + (
-        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-    return env
-
-
-@pytest.mark.parametrize("extra", [["--compress", "int8"],
-                                   ["--collective", "manual"]])
-def test_driver_loss_streams_match_reference_driver(tmp_path, extra):
-    """Both drivers, same flags, each from its own copy of one
-    params-only step-0 checkpoint of reference parameters."""
-    rcfg = rget("qwen1.5-4b").smoke_variant()
-    tree = _ref_params(rcfg, seed=3)
-    for d in ("ref", "port"):
-        rckpt.save(str(tmp_path / d), tree, step=0)
-    flags = ["--arch", "qwen1.5-4b", "--steps", "6", "--seq-len", "32",
-             "--block-size", "2", "--straggler-p", "0.2", *extra]
-    env = _env()
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    ref = subprocess.run(
-        [sys.executable, "-m", "repro.launch.train", *flags,
-         "--ckpt-dir", str(tmp_path / "ref")], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=420)
-    assert ref.returncode == 0, ref.stdout + ref.stderr
-    port = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--device",
-         "cpu", *flags, "--ckpt-dir", str(tmp_path / "port")], cwd=REPO,
-        env=_env(), capture_output=True, text=True, timeout=420)
-    assert port.returncode == 0, port.stdout + port.stderr
-    r = json.loads(ref.stdout.strip().splitlines()[-1])
-    p = json.loads(port.stdout.strip().splitlines()[-1])
-    assert r["m_workers"] == p["m_workers"] == 4
-    for key in ("path", "collective", "compress", "comm_bytes_per_step",
-                "comm_bytes_per_step_float32", "decode_calls"):
-        assert p[key] == r[key], key
-    np.testing.assert_allclose(p["losses"], r["losses"], rtol=1e-4)

@@ -2,7 +2,8 @@
 arguments: loss streams, ms a step, peak memory a rank and the bytes
 each collective moved a step a rank.
 
-    python tools/compare_ranks.py [--nproc 4] [--device cuda|cpu]
+    python tools/compare_ranks.py [--nproc 4] [--model 1|2]
+                                  [--device cuda|cpu]
 
 Each run is ``torchrun --nproc_per_node W`` (W = ``--nproc``) of this
 script's rank mode, then the same arguments in one process; every rank
@@ -13,8 +14,14 @@ ranks meet over ``nccl``, one card a rank, and on the CPU over
 streaming one machine at a time, and the dedup path with ``--fsdp``
 (its one-process counterpart without). Each W-rank loss stream must
 match the one-rank stream within rtol 2e-4 / atol 2e-5 (the
-reference's float32 reassociation tolerance). The last line is a JSON
-object with every run's numbers and the card's name and power limit.
+reference's float32 reassociation tolerance). ``--model M`` runs the W
+ranks on the layout (W/M, M), the model axis executed (default 1: the
+data axis alone; 2 is the reference's layout at W = 4), in float32
+activations on both sides: in bf16 a row-parallel product's partial
+sums are rounded to bf16 before the all-reduce adds them, which moves
+the losses past that tolerance (2.2e-4 relative at step 5 of the manual
+m = 8 run on four H100s). The last line is a JSON object with every
+run's numbers and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ RUNS = (("manual m=8", ["--collective", "manual", "--machines", "8"]),
 RTOL, ATOL = 2e-4, 2e-5
 
 
-def rank_main(out: str, device: str, argv) -> None:
+def rank_main(out: str, device: str, model: int, argv) -> None:
     """One rank (or the one process): the driver, then this rank's
     numbers into ``out``.<rank>.json."""
     sys.path.insert(0, os.path.join(HERE, "src"))
@@ -50,7 +57,9 @@ def rank_main(out: str, device: str, argv) -> None:
     cfg = get_config("granite-3-8b")
     cfg = (cfg.smoke_variant() if device == "cpu"
            else cfg.with_overrides(n_layers=2))
-    s = train.main(argv + ["--device", device], cfg=cfg)
+    if model > 1:
+        cfg = cfg.with_overrides(dtype="float32")
+    s = train.main(argv + ["--device", device], cfg=cfg, model=model)
     rank = int(os.environ.get("RANK", "0"))
     peak = (torch.cuda.max_memory_allocated() if device == "cuda"
             else None)
@@ -58,9 +67,10 @@ def rank_main(out: str, device: str, argv) -> None:
         json.dump({"summary": s, "peak_bytes": peak}, f)
 
 
-def _launch(nproc: int, out: str, device: str, argv) -> list:
+def _launch(nproc: int, out: str, device: str, argv, model: int = 1
+            ) -> list:
     me = [os.path.abspath(__file__), "--rank-mode", out, "--device",
-          device, "--"] + argv
+          device, "--model", str(model), "--"] + argv
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
                OMP_NUM_THREADS="1")
     cmd = ([sys.executable, "-m", "torch.distributed.run",
@@ -78,11 +88,12 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--nproc", type=int, default=4)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--rank-mode", default=None)
     ap.add_argument("argv", nargs="*")
     args = ap.parse_args()
     if args.rank_mode:
-        rank_main(args.rank_mode, args.device, args.argv)
+        rank_main(args.rank_mode, args.device, args.model, args.argv)
         return
     import numpy as np
     card = None
@@ -96,12 +107,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for label, extra in RUNS:
             many = _launch(args.nproc, os.path.join(tmp, "many"),
-                           args.device, base + extra)
+                           args.device, base + extra, args.model)
             # one rank holds whole tensors: FSDP there is the identity
             one = _launch(1, os.path.join(tmp, "one"), args.device,
-                          base + [a for a in extra if a != "--fsdp"])
+                          base + [a for a in extra if a != "--fsdp"],
+                          args.model)
             s, s1 = many[0]["summary"], one[0]["summary"]
-            if s["world_size"] != args.nproc or s1["world_size"] != 1:
+            if s["world_size"] != args.nproc // args.model or \
+                    s1["world_size"] != 1:
                 raise AssertionError(f"{label}: world sizes "
                                      f"{s['world_size']}, {s1['world_size']}")
             got, want = np.asarray(s["losses"]), np.asarray(s1["losses"])
@@ -112,7 +125,7 @@ def main() -> None:
                 if other["summary"]["losses"] != s["losses"]:
                     raise AssertionError(f"{label}: ranks disagree")
             rows[label] = {
-                "world_size": args.nproc,
+                "world_size": args.nproc, "layout": s["layout"],
                 "ms_per_step": s["loop_s"] / STEPS * 1e3,
                 "one_rank_ms_per_step": s1["loop_s"] / STEPS * 1e3,
                 "peak_gb_per_rank": [None if o["peak_bytes"] is None
@@ -132,7 +145,8 @@ def main() -> None:
                   f"{args.nproc} ranks, {row['one_rank_ms_per_step']:.1f} "
                   f"on one; loss gap {row['loss_rel_gap']:.2e}", flush=True)
     print(json.dumps({"card": card, "device": args.device,
-                      "nproc": args.nproc, "rtol": RTOL, "atol": ATOL,
+                      "nproc": args.nproc, "model": args.model,
+                      "rtol": RTOL, "atol": ATOL,
                       "runs": rows}))
 
 

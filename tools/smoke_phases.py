@@ -2,19 +2,23 @@
 kernels, each printing its own line; a phase that raises prints its
 error and the others still run.
 
-    python tools/smoke_phases.py long prefill remat chaos
+    python tools/smoke_phases.py long prefill remat chaos model_axis
     python tools/smoke_phases.py chaos --chaos-dtype bfloat16
 
 Phases: ``long`` (``long_attention``), ``prefill`` (``prefill_32k``),
-``remat`` (``remat``, without the train phase's dedup row) and ``chaos``
+``remat`` (``remat``, without the train phase's dedup row), ``chaos``
 (the distributed phase's chaos run on two gloo ranks against one process,
 in ``--chaos-dtype`` activations, float32 by default as in
-``chip_smoke.py``). Exits non-zero if any phase raised.
+``chip_smoke.py``) and ``model_axis`` (decode_attention at the model
+axis's 16/4 heads against its plain version, then ``model_axis``: two
+gloo ranks on layout (1, 2) and (2, 1)). Exits non-zero if any phase
+raised.
 """
 
 import argparse
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -26,7 +30,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import chip_smoke as C  # noqa: E402
 
-PHASES = ("long", "prefill", "remat", "chaos")
+PHASES = ("long", "prefill", "remat", "chaos", "model_axis")
 
 
 def _chaos(torch, dtype):
@@ -72,6 +76,17 @@ def main(argv=None) -> int:
             elif name == "remat":
                 C.remat(torch, dev, {"ms_per_step": None,
                                      "peak_mem_gb": None})
+            elif name == "model_axis":
+                import numpy as np
+                C.check_decode_attention(
+                    torch, dev, 8, 16, 4, 1024, 128, "bfloat16",
+                    np.random.default_rng(0).integers(1, 1025, 8).tolist(),
+                    "model axis M=2 B=8 H=16 KVH=4 S=1024 ragged")
+                card = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=name,power.limit",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True, timeout=60).stdout.strip()
+                C.model_axis(torch, dev, card)
             else:
                 _chaos(torch, args.chaos_dtype)
         except Exception:           # report it, run the other phases

@@ -62,7 +62,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions: equal to 1e-3 in float32, and in bf16 no farther from the
    float32 logits than twice the plain version's bf16 error. Then the
    pool step's device time by kernel family
-   (``repro_torch.launch.step_profile --full-config``).
+   (``repro_torch.launch.step_profile --full-config``, over
+   ``PROFILE_STEPS`` traced steps, as the families' profiles).
 4a. Long sequences (``long_attention``, ``prefill_32k``): one
    granite-width attention layer (H = 32, KVH = 8, Dh = 128, bf16,
    B = 1) forward and backward, at 4,096 tokens the blockwise output and
@@ -158,7 +159,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    equal (few where the ranks' rounding is large: the teacher-forced
    bound is then the check that counts); K1 and K2 at 81 and 40 a pool
    step on each rank. The kernels phase holds K2 at that 16/4-head shape
-   against its plain version.
+   against its plain version. In the same spawn, zamba2-1.2b and
+   xlstm-1.3b at their published widths with Mamba2's and the xLSTM's
+   split heads run where they lie (``MA_FAMILIES``): training on (1, 2)
+   (float32, ``MA_FAMILY_STEPS`` steps, dedup and int8; zamba2 cut to 2
+   Mamba2 layers and one shared attention insertion, xlstm to 8 layers,
+   one super-block) with each loss stream within rtol 1e-4 of one
+   process's, resident bytes as placed, K1 and K4 counts on each rank and
+   nothing all-gathered but Mamba2's B | C | dt features; serving at
+   full config (38 and 48 layers, in float32: in bf16 zamba2's rounding
+   alone moves its logits by their size) on (1, 2) with ``--check``, the
+   teacher-forced logits and streams held as granite's, K1 and K2
+   counts a pool step on each rank (zamba2's shared attention at 16
+   query over 16 KV heads a rank, which the kernels phase also holds K2
+   at). Each family's ``model_axis_family`` line prints the model
+   group's bytes a step and a pool step by kind beside the bytes gather
+   at use moved a pass (computed from the leaf shapes), peak GB a rank,
+   ms a step and tokens/s.
 5b. The other families at full width (``families``): deepseek-moe-16b
    (moe), zamba2-1.2b (hybrid), xlstm-1.3b (ssm), pixtral-12b (vlm) and
    seamless-m4t-large-v2 (audio). Each trains 6 steps on the dedup path
@@ -308,6 +325,10 @@ K7B_SHAPES = ((12, 2184, 30), (12, 2184, 1000), (3, 17, 384),
 ERR_RTOL, ERR_ATOL = 1e-4, 1e-7
 COV_RTOL, COV_ATOL = 5e-3, 1e-9
 HARNESS_P = (0.05, 0.1, 0.15, 0.2, 0.25, 0.3)
+# Steps each pool-step profile traces (the tool's default is 20): a
+# profile's time grows with the traced steps, whose trace the host
+# processes, and 8 keep the script inside its time limit.
+PROFILE_STEPS = 8
 
 
 def _say(tag, **kw):
@@ -1430,8 +1451,8 @@ def family_serve(torch, dev, arch, over):
         # where the pool step goes: 8 slots at cache position 32
         from repro_torch.launch import step_profile as sp
         _free(torch)
-        prof = sp.main(["--slots", "8", "--max-len", "64", "--pos", "32"],
-                       cfg=cfg)
+        prof = sp.main(["--slots", "8", "--max-len", "64", "--pos", "32",
+                        "--steps", str(PROFILE_STEPS)], cfg=cfg)
         row["step_profile"] = {k: prof[k] for k in (
             "host_ms_per_step", "graph_ms_per_step", "device_ms_per_step",
             "device_busy_share", "kernel_families_ms_per_step")}
@@ -1918,6 +1939,37 @@ MA_SERVE_ARGS = ["--arch", "granite-3-8b", "--full-config", "--requests",
 MA_LOGIT_ATOL = 0.25
 
 
+# Mamba2's and the xLSTM's split heads run locally (``models/ssm.py``,
+# ``models/xlstm.py``) on (1, 2), two gloo ranks on the card, at their
+# published widths. Training, float32 activations, dedup and int8 (K4 on
+# shard rows), depth cut: zamba2 to 2 Mamba2 layers with one shared
+# attention insertion, xlstm to 8 layers (one super-block of 7 mLSTM and
+# one sLSTM). Serving at full config (38 and 48 layers) in float32, 8
+# requests on 8 slots, short prompts and streams to keep the script well
+# inside its time limit (K2 at zamba2's 16 query over 16 KV heads a rank):
+# in bf16 zamba2's own rounding moves its logits by about their size
+# (5.48 between bf16 and float32 at 4 teacher-forced steps, the families
+# phase; 4.24 between the two layouts), so no bound could hold the ranks
+# to one process there.
+# 3 steps: from the fourth the xLSTM's float32 training parts fast from
+# any rounding change (on an NVIDIA H100 at 700 W: the two ranks 1.2e-5
+# from one process at the third step, 9.6e-5 at the fourth; a 1e-7
+# relative perturbation of its parameters in one process 6.4e-7 and
+# 4.1e-5, ``tools/train_divergence.py``).
+MA_FAMILY_STEPS = 3
+MA_FAMILY_TRAIN_ARGS = ["--steps", str(MA_FAMILY_STEPS)] + TRAIN_ARGS[2:]
+MA_FAMILY_TRAIN_RUNS = (("dedup", []), ("int8", ["--compress", "int8"]))
+MA_FAMILIES = (("zamba2-1.2b", {"n_layers": 2, "attn_positions": (1,)}),
+               ("xlstm-1.3b", {"n_layers": 8}))
+MA_FAMILY_SERVE_ARGS = ["--full-config", "--requests", "8", "--slots", "8",
+                        "--prompt-len", "8", "--prompt-spread", "4",
+                        "--max-new-tokens", "6", "--max-len", "32",
+                        "--replicas", "8", "--seed", "0", "--scheme",
+                        "expander", "--straggler-p", "0.2", "--check"]
+MA_FAMILY_SERVE_DTYPE = "float32"
+MA_ZAMBA2_K2 = "zamba2 model axis M=2 B=8 H=KVH=16 S=1024 Dh=64 ragged"
+
+
 def _ma_requests(args):
     """The serving CLI's requests for ``args`` (their prompts)."""
     import types
@@ -1929,7 +1981,7 @@ def _ma_requests(args):
         prompt_len=int(kv["--prompt-len"]),
         prompt_spread=int(kv["--prompt-spread"]),
         max_new_tokens=int(kv["--max-new-tokens"]))
-    return launch_serve._build_requests(ns, get_config("granite-3-8b"))
+    return launch_serve._build_requests(ns, get_config(kv["--arch"]))
 
 
 def _ma_teacher_forced(torch, dev, cfg, params, reqs, streams, workers):
@@ -1967,10 +2019,12 @@ def _ma_teacher_forced(torch, dev, cfg, params, reqs, streams, workers):
 
 def _model_axis_rank(rank, tmp, jobs):
     """One of two gloo ranks on the card: ``jobs`` in order, each a
-    training run (label -> ("train", argv)) on layout (1, 2), or a
-    serving run (label -> ("serve", model)) on (1, 2) or (2, 1) followed
-    by its teacher-forced logits along the one-process streams; launch
-    counts, traffic, peaks and results written to ``tmp``."""
+    training run (label -> ("train", (arch, overrides, argv))) on layout
+    (1, 2), or a serving run (label -> ("serve", (argv, model,
+    overrides))) on (1, 2) or (2, 1) of ``--arch``'s full config with the
+    overrides, followed by its teacher-forced logits along the
+    one-process streams (``one_streams_<arch>.json``); launch counts,
+    traffic, peaks and results written to ``tmp``."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
     import torch.distributed as dist
@@ -1994,11 +2048,16 @@ def _model_axis_rank(rank, tmp, jobs):
             traffic0 = dict(pg.traffic)
             t0 = time.perf_counter()
             if kind == "train":
-                cfg = get_config("granite-3-8b").with_overrides(
-                    n_layers=2, dtype=MA_DTYPE)
-                res = {"summary": launch_train.main(arg, cfg=cfg, model=2)}
+                arch, over, argv = arg
+                cfg = get_config(arch).with_overrides(dtype=MA_DTYPE,
+                                                      **over)
+                res = {"summary": launch_train.main(argv, cfg=cfg,
+                                                    model=2)}
             else:
-                r = launch_serve.main(MA_SERVE_ARGS, model=arg)
+                argv, model, over = arg
+                arch = argv[argv.index("--arch") + 1]
+                cfg = get_config(arch).with_overrides(**over)
+                r = launch_serve.main(argv, cfg, model=model)
                 res = {"summary": r["summary"],
                        "results": {str(k): v.tolist()
                                    for k, v in r["results"].items()}}
@@ -2013,16 +2072,15 @@ def _model_axis_rank(rank, tmp, jobs):
             if kind == "serve":
                 # teacher-forced along the one-process streams, on this
                 # layout's placement
-                with open(os.path.join(tmp, "one_streams.json")) as f:
+                with open(os.path.join(tmp,
+                                       f"one_streams_{arch}.json")) as f:
                     one = {int(k): v for k, v in json.load(f).items()}
                 del r
                 _free(torch)
-                cfg = get_config("granite-3-8b")
-                workers = pg.init_workers(dev, model=arg)
+                workers = pg.init_workers(dev, model=model)
                 params = launch_serve._placed_params(cfg, 0, dev, workers)
                 lg = _ma_teacher_forced(torch, dev, cfg, params,
-                                        _ma_requests(MA_SERVE_ARGS), one,
-                                        workers)
+                                        _ma_requests(argv), one, workers)
                 if rank == 0:
                     torch.save(lg.cpu(), os.path.join(tmp, f"tf_{label}.pt"))
                 del params, lg
@@ -2047,7 +2105,7 @@ def _first_near_tie(one_logits, vocab, eps):
     return firsts
 
 
-def model_axis(torch, dev, card):
+def model_axis(torch, dev, card, archs=None):
     """The model axis executed (``dist.tensor_parallel``) on two gloo ranks
     sharing the card. Training on (1, 2): each run's loss stream within
     ``MA_RTOL`` of the one-process run's, each rank's resident parameter
@@ -2060,7 +2118,8 @@ def model_axis(torch, dev, card):
     first position whose one-process top-2 gap is at most twice their
     largest difference (no closer pair can change the argmax); K1 and K2
     counts a pool step (81 and 40) on each rank. Returns the summed
-    counts of the ranks' runs (rank 0's)."""
+    counts of the ranks' runs (rank 0's). ``archs`` (default all) picks
+    granite-3-8b and the ``MA_FAMILIES`` to run (``_ma_family_check``)."""
     import tempfile
     import numpy as np
     import torch.multiprocessing as mp
@@ -2078,41 +2137,57 @@ def model_axis(torch, dev, card):
     n_leaves = len(param_shapes(cfg))
     totals, rows = {}, {}
     ones = {}
-    for label, extra in MA_TRAIN_RUNS:
+    archs = archs or ("granite-3-8b",) + tuple(a for a, _ in MA_FAMILIES)
+    granite = "granite-3-8b" in archs
+    fams = tuple(f for f in MA_FAMILIES if f[0] in archs)
+    jobs, one_streams = {}, {}
+    for label, extra in (MA_TRAIN_RUNS if granite else ()):
         ones[label], counts, _, _ = _run_train(torch, cfg, extra, None,
                                                MA_TRAIN_ARGS)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
         _free(torch)
-    # the one-process engine, and its teacher-forced logits
-    full = get_config("granite-3-8b")
-    rn_ops.launches = da_ops.launches = 0
-    one = launch_serve.main(MA_SERVE_ARGS)
-    totals["rmsnorm"] = totals.get("rmsnorm", 0) + rn_ops.launches
-    totals["decode_attention"] = (totals.get("decode_attention", 0)
-                                  + da_ops.launches)
-    one_streams = {int(k): v for k, v in one["results"].items()}
-    del one
-    _free(torch)
-    reqs = _ma_requests(MA_SERVE_ARGS)
-    params = M.cast_block_weights(M.init_params(full, seed=0, device=dev),
-                                  full)
-    one_lg = _ma_teacher_forced(torch, dev, full, params, reqs,
-                                one_streams, None).cpu()
-    del params
-    _free(torch)
+    if granite:
+        # the one-process engine, and its teacher-forced logits
+        full = get_config("granite-3-8b")
+        rn_ops.launches = da_ops.launches = 0
+        one = launch_serve.main(MA_SERVE_ARGS)
+        totals["rmsnorm"] = totals.get("rmsnorm", 0) + rn_ops.launches
+        totals["decode_attention"] = (totals.get("decode_attention", 0)
+                                      + da_ops.launches)
+        one_streams = {int(k): v for k, v in one["results"].items()}
+        del one
+        _free(torch)
+        reqs = _ma_requests(MA_SERVE_ARGS)
+        params = M.cast_block_weights(M.init_params(full, seed=0, device=dev),
+                                      full)
+        one_lg = _ma_teacher_forced(torch, dev, full, params, reqs,
+                                    one_streams, None).cpu()
+        del params
+        _free(torch)
     shapes = meta_params(cfg)
     layout = make_test_layout((1, 2))
     want_resident = bytes_per_device(shapes, safe_param_specs(shapes,
                                                               layout),
                                      layout)
-    jobs = {label: ("train", MA_TRAIN_ARGS + extra)
-            for label, extra in MA_TRAIN_RUNS}
-    jobs.update({"serve (1, 2)": ("serve", 2), "serve (2, 1)": ("serve", 1)})
+    if granite:
+        over = {"n_layers": 2}
+        jobs = {label: ("train", ("granite-3-8b", over,
+                                  MA_TRAIN_ARGS + extra))
+                for label, extra in MA_TRAIN_RUNS}
+        jobs.update({"serve (1, 2)": ("serve", (MA_SERVE_ARGS, 2, {})),
+                     "serve (2, 1)": ("serve", (MA_SERVE_ARGS, 1, {}))})
+    fam = _ma_family_ones(torch, dev, fams)
+    jobs.update(fam["jobs"])
+    streams_of = dict(fam["ones"], **({"granite-3-8b": {
+        "streams": one_streams}} if granite else {}))
     with tempfile.TemporaryDirectory() as tmp:
-        with open(os.path.join(tmp, "one_streams.json"), "w") as f:
-            json.dump({str(k): list(map(int, v))
-                       for k, v in one_streams.items()}, f)
+        for arch, one in streams_of.items():
+            streams = one["streams"]
+            with open(os.path.join(tmp, f"one_streams_{arch}.json"),
+                      "w") as f:
+                json.dump({str(k): list(map(int, v))
+                           for k, v in streams.items()}, f)
         t0 = time.perf_counter()
         mp.spawn(_model_axis_rank, args=(tmp, jobs), nprocs=2, join=True)
         spawn_s = time.perf_counter() - t0
@@ -2121,121 +2196,361 @@ def model_axis(torch, dev, card):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 outs.append(json.load(f))
         tf = {label: torch.load(os.path.join(tmp, f"tf_{label}.pt"))
-              for label in ("serve (1, 2)", "serve (2, 1)")}
-    norms = _train_norms(cfg)
-    for label, extra in MA_TRAIN_RUNS:
+              for label, (kind, _) in jobs.items() if kind == "serve"}
+    if granite:
+        norms = _train_norms(cfg)
+        for label, extra in MA_TRAIN_RUNS:
+            codec = extra[1] if extra else "none"
+            rows_n = 4                      # the dedup path's 4 blocks
+            forwards = rows_n if codec != "none" else 1
+            want = {"rmsnorm": norms * forwards * MA_STEPS,
+                    "decode_attention": 0, "coded_combine": 0,
+                    "quantized_combine": (n_leaves * MA_STEPS
+                                          if codec == "int8" else 0),
+                    "packed_sign_combine": (
+                        n_leaves * MA_STEPS if codec == "sign_packed"
+                        else 0)}
+            ref = np.asarray(ones[label]["losses"])
+            for r, o in enumerate(outs):
+                got = o[label]
+                s = got["summary"]
+                if s["layout"] != {"data": 1, "model": 2}:
+                    raise AssertionError(f"model_axis {label}: layout "
+                                         f"{s['layout']}")
+                if got["launches"] != want:
+                    raise AssertionError(f"model_axis {label} rank {r}: "
+                                         f"launch counts {got['launches']} != "
+                                         f"{want}")
+                res = s["resident_bytes"]["params"]
+                if abs(res - want_resident) > MA_RESIDENT_RTOL * want_resident:
+                    raise AssertionError(f"model_axis {label} rank {r}: "
+                                         f"resident {res} B, bytes_per_device "
+                                         f"{want_resident} B")
+                loss = np.asarray(s["losses"])
+                if loss.shape != ref.shape or not np.allclose(
+                        loss, ref, rtol=MA_RTOL, atol=0):
+                    raise AssertionError(f"model_axis {label} rank {r}: "
+                                         f"losses {loss} vs one process "
+                                         f"{ref}")
+            s = outs[0][label]["summary"]
+            rows[label] = {
+                "ms_per_step": s["loop_s"] / MA_STEPS * 1e3,
+                "one_process_ms_per_step": ones[label]["loop_s"] / MA_STEPS
+                * 1e3,
+                "losses": s["losses"], "one_process_losses": ones[label][
+                    "losses"],
+                "loss_rel_gap": float(np.max(np.abs(np.asarray(s["losses"])
+                                                    - ref) / np.abs(ref))),
+                "resident_param_bytes": [
+                    o[label]["summary"]["resident_bytes"]["params"]
+                    for o in outs],
+                "bytes_per_device": want_resident,
+                "one_process_param_bytes": ones[label]["resident_bytes"][
+                    "params"],
+                "model_bytes_per_step": {
+                    k: v for k, v in s["collective_bytes_per_step"].items()
+                    if v},
+                "peak_gb": [o[label]["peak_bytes"] / 1e9 for o in outs],
+                "launches": outs[0][label]["launches"]}
+            for k, v in outs[0][label]["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+        vocab = full.vocab_size
+        for label, model in (("serve (1, 2)", 2), ("serve (2, 1)", 1)):
+            lg = tf[label]
+            err = (lg - one_lg).abs().max().item()
+            if not err <= MA_LOGIT_ATOL:
+                raise AssertionError(f"model_axis {label}: teacher-forced "
+                                     f"logits {err} from the one process's "
+                                     f"(> {MA_LOGIT_ATOL})")
+            firsts = _first_near_tie(one_lg, vocab, 2 * err)
+            for r, o in enumerate(outs):
+                got = o[label]
+                s = got["summary"]
+                if s["check_passed"] is not True:
+                    raise AssertionError(f"model_axis {label} rank {r}: "
+                                         "engine streams != sequential "
+                                         "reference")
+                steps = s["pool_steps"]
+                want = {"rmsnorm": 81 * steps, "decode_attention": 40 * steps,
+                        "coded_combine": 0, "quantized_combine": 0,
+                        "packed_sign_combine": 0}
+                if steps <= 0 or got["launches"] != want:
+                    raise AssertionError(f"model_axis {label} rank {r}: "
+                                         f"launch counts {got['launches']} "
+                                         f"!= {want}")
+                agree = []
+                for req, first in zip(reqs, firsts):
+                    a = got["results"][str(req.uid)]
+                    b = one_streams[req.uid]
+                    n = next((i for i, (x, y) in enumerate(zip(a, b))
+                              if x != y), len(b))
+                    if n < first:
+                        raise AssertionError(
+                            f"model_axis {label} rank {r}: request {req.uid} "
+                            f"parts from the one process at token {n}, before "
+                            f"its first near-tie at {first}")
+                    agree.append(n)
+            s = outs[0][label]["summary"]
+            rows[label] = {
+                "layout": s["layout"], "slots_per_rank": s["slots_per_rank"],
+                "tokens_per_s": s["tokens_per_s"],
+                "pool_steps": s["pool_steps"],
+                "check_passed": s["check_passed"],
+                "teacher_forced_max_abs_diff": err,
+                "max_abs_logit": one_lg.abs().max().item(),
+                "near_tie_eps": 2 * err, "first_near_tie": firsts,
+                # the tokens the stream rule held equal (those before each
+                # request's first near-tie), of all the generated ones
+                "stream_rule_tokens": sum(min(f, len(one_streams[q.uid]))
+                                          for f, q in zip(firsts, reqs)),
+                "generated_tokens": sum(len(one_streams[q.uid])
+                                        for q in reqs),
+                "agree_tokens": agree,
+                "streams_equal": sum(a == len(one_streams[q.uid])
+                                     for a, q in zip(agree, reqs)),
+                "peak_gb": [o[label]["peak_bytes"] / 1e9 for o in outs],
+                "wall_s": [o[label]["wall_s"] for o in outs],
+                "bytes_per_pool_step": {
+                    k: v / max(1, s["pool_steps"]) for k, v in
+                    outs[0][label]["traffic"].items() if v},
+                "launches": outs[0][label]["launches"]}
+            for k, v in outs[0][label]["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+        _say("model_axis", card=card, arch="granite-3-8b", train_n_layers=2,
+             train_dtype=MA_DTYPE, steps=MA_STEPS, rtol=MA_RTOL,
+             logit_atol=MA_LOGIT_ATOL, spawn_s=spawn_s, runs=rows)
+    for arch, over in fams:
+        for k, v in _ma_family_check(torch, card, arch, over, fam, outs,
+                                     tf).items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def _ma_family_ones(torch, dev, fams=MA_FAMILIES):
+    """The one-process runs the families' model-axis runs are held to
+    (training runs, the engine's streams, teacher-forced logits along
+    them, and their launch counts) and the families' rank jobs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model as M
+    ones, jobs = {}, {}
+    for arch, over in fams:
+        cfg = get_config(arch).with_overrides(dtype=MA_DTYPE, **over)
+        one = {"train": {}, "counts": {}}
+        for label, extra in MA_FAMILY_TRAIN_RUNS:
+            s, counts, _, _ = _run_train(torch, cfg, extra, None,
+                                         MA_FAMILY_TRAIN_ARGS)
+            one["train"][label] = s
+            one["counts"][label] = counts
+            jobs[f"{arch} {label}"] = ("train", (
+                arch, over, MA_FAMILY_TRAIN_ARGS + extra))
+            _free(torch)
+        argv = ["--arch", arch] + MA_FAMILY_SERVE_ARGS
+        serve_over = {"dtype": MA_FAMILY_SERVE_DTYPE}
+        full = get_config(arch).with_overrides(**serve_over)
+        rn_ops.launches = da_ops.launches = 0
+        r = launch_serve.main(argv, full)
+        one["counts"]["serve"] = {"rmsnorm": rn_ops.launches,
+                                  "decode_attention": da_ops.launches}
+        one["serve"] = r["summary"]
+        one["streams"] = {int(k): v for k, v in r["results"].items()}
+        del r
+        _free(torch)
+        params = M.cast_block_weights(M.init_params(full, seed=0,
+                                                    device=dev), full)
+        one["logits"] = _ma_teacher_forced(
+            torch, dev, full, params, _ma_requests(argv), one["streams"],
+            None).cpu()
+        del params
+        _free(torch)
+        jobs[f"{arch} serve (1, 2)"] = ("serve", (argv, 2, serve_over))
+        ones[arch] = one
+    return {"ones": ones, "jobs": jobs}
+
+
+def _ma_gather_at_use_bytes(cfg, itemsize):
+    """What gather at use moved a pass, computed from the leaf shapes
+    (not measured): a rank's block of every Mamba2 or xLSTM leaf that
+    ``safe_param_specs`` splits at M = 2, in ``itemsize`` bytes."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.dist.sharding import safe_param_specs
+    from repro_torch.launch.mesh import make_test_layout
+    from repro_torch.launch.specs import meta_params
+    shapes = meta_params(cfg)
+    specs = safe_param_specs(shapes, make_test_layout((1, 2)))
+    total = 0
+    for path, x, spec in zip(T.paths(shapes), T.leaves(shapes),
+                             T.leaves(specs)):
+        if tp.model_dim(spec) >= 0 and path.split("/")[1] in (
+                "ssm", "mlstm", "slstm"):
+            total += int(np.prod(x.shape)) // 2 * itemsize
+    return total
+
+
+def _ma_family_check(torch, card, arch, over, fam, outs, tf):
+    """One family's model-axis runs against its one-process runs:
+    training (loss streams within ``MA_RTOL``, resident parameter bytes
+    within ``MA_RESIDENT_RTOL`` of ``bytes_per_device``, K1 and K4 counts
+    on each rank, no all-gather of a Mamba2 or xLSTM leaf) and serving
+    at full config (``--check``, teacher-forced logits within
+    ``MA_LOGIT_ATOL``, streams equal up to the first near-tie, K1 and K2
+    counts a pool step on each rank). Prints its line; returns rank 0's
+    counts."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import bytes_per_device, safe_param_specs
+    from repro_torch.launch.mesh import make_test_layout
+    from repro_torch.launch.specs import meta_params
+    from repro_torch.models.convert import param_shapes
+    one = fam["ones"][arch]
+    cfg = get_config(arch).with_overrides(dtype=MA_DTYPE, **over)
+    n_leaves = len(param_shapes(cfg))
+    layout = make_test_layout((1, 2))
+    shapes = meta_params(cfg)
+    want_resident = bytes_per_device(
+        shapes, safe_param_specs(shapes, layout), layout)
+    # nothing of a parameter is all-gathered in training: only Mamba2's
+    # B | C | dt features, a rank's half of them for each of the 4,096
+    # tokens a step (4 blocks of 4 sequences of 256), in the forward and
+    # in the recomputation
+    want_gathered = 0
+    if cfg.arch_type == "hybrid":
+        H = cfg.ssm_expand * cfg.d_model // 64
+        want_gathered = (2 * cfg.n_layers * 4096
+                         * (2 * cfg.ssm_state + H) // 2 * 4)
+    totals, rows = {}, {}
+    for label, extra in MA_FAMILY_TRAIN_RUNS:
+        key = f"{arch} {label}"
         codec = extra[1] if extra else "none"
-        rows_n = 4                      # the dedup path's 4 blocks
-        forwards = rows_n if codec != "none" else 1
-        want = {"rmsnorm": norms * forwards * MA_STEPS,
+        forwards = 4 if codec != "none" else 1      # the dedup path's 4
+        want = {"rmsnorm": _train_norms(cfg) * forwards * MA_FAMILY_STEPS,
                 "decode_attention": 0, "coded_combine": 0,
-                "quantized_combine": (n_leaves * MA_STEPS
+                "quantized_combine": (n_leaves * MA_FAMILY_STEPS
                                       if codec == "int8" else 0),
-                "packed_sign_combine": (n_leaves * MA_STEPS
-                                        if codec == "sign_packed" else 0)}
-        ref = np.asarray(ones[label]["losses"])
+                "packed_sign_combine": 0}
+        ref = np.asarray(one["train"][label]["losses"])
         for r, o in enumerate(outs):
-            got = o[label]
+            got = o[key]
             s = got["summary"]
             if s["layout"] != {"data": 1, "model": 2}:
-                raise AssertionError(f"model_axis {label}: layout "
+                raise AssertionError(f"model_axis {key}: layout "
                                      f"{s['layout']}")
             if got["launches"] != want:
-                raise AssertionError(f"model_axis {label} rank {r}: "
-                                     f"launch counts {got['launches']} != "
-                                     f"{want}")
+                raise AssertionError(f"model_axis {key} rank {r}: launch "
+                                     f"counts {got['launches']} != {want}")
             res = s["resident_bytes"]["params"]
             if abs(res - want_resident) > MA_RESIDENT_RTOL * want_resident:
-                raise AssertionError(f"model_axis {label} rank {r}: "
-                                     f"resident {res} B, bytes_per_device "
+                raise AssertionError(f"model_axis {key} rank {r}: resident "
+                                     f"{res} B, bytes_per_device "
                                      f"{want_resident} B")
             loss = np.asarray(s["losses"])
             if loss.shape != ref.shape or not np.allclose(
                     loss, ref, rtol=MA_RTOL, atol=0):
-                raise AssertionError(f"model_axis {label} rank {r}: losses "
+                raise AssertionError(f"model_axis {key} rank {r}: losses "
                                      f"{loss} vs one process {ref}")
-        s = outs[0][label]["summary"]
+            gathered = s["collective_bytes_per_step"]["model_all_gather"]
+            if gathered != want_gathered:
+                raise AssertionError(f"model_axis {key} rank {r}: "
+                                     f"{gathered} B all-gathered a step, "
+                                     f"not {want_gathered} (B | C | dt)")
+        s = outs[0][key]["summary"]
         rows[label] = {
-            "ms_per_step": s["loop_s"] / MA_STEPS * 1e3,
-            "one_process_ms_per_step": ones[label]["loop_s"] / MA_STEPS
-            * 1e3,
-            "losses": s["losses"], "one_process_losses": ones[label][
-                "losses"],
+            "ms_per_step": s["loop_s"] / MA_FAMILY_STEPS * 1e3,
+            "one_process_ms_per_step": one["train"][label]["loop_s"]
+            / MA_FAMILY_STEPS * 1e3,
+            "losses": s["losses"],
+            "one_process_losses": one["train"][label]["losses"],
             "loss_rel_gap": float(np.max(np.abs(np.asarray(s["losses"])
                                                 - ref) / np.abs(ref))),
-            "resident_param_bytes": [o[label]["summary"]["resident_bytes"][
+            "resident_param_bytes": [o[key]["summary"]["resident_bytes"][
                 "params"] for o in outs],
             "bytes_per_device": want_resident,
-            "one_process_param_bytes": ones[label]["resident_bytes"][
-                "params"],
             "model_bytes_per_step": {
                 k: v for k, v in s["collective_bytes_per_step"].items()
                 if v},
-            "peak_gb": [o[label]["peak_bytes"] / 1e9 for o in outs],
-            "launches": outs[0][label]["launches"]}
-        for k, v in outs[0][label]["launches"].items():
+            "gather_at_use_bytes_per_pass": _ma_gather_at_use_bytes(cfg, 4),
+            "peak_gb": [o[key]["peak_bytes"] / 1e9 for o in outs],
+            "launches": outs[0][key]["launches"]}
+        for k, v in outs[0][key]["launches"].items():
             totals[k] = totals.get(k, 0) + v
-    vocab = full.vocab_size
-    for label, model in (("serve (1, 2)", 2), ("serve (2, 1)", 1)):
-        lg = tf[label]
-        err = (lg - one_lg).abs().max().item()
-        if not err <= MA_LOGIT_ATOL:
-            raise AssertionError(f"model_axis {label}: teacher-forced "
-                                 f"logits {err} from the one process's "
-                                 f"(> {MA_LOGIT_ATOL})")
-        firsts = _first_near_tie(one_lg, vocab, 2 * err)
-        for r, o in enumerate(outs):
-            got = o[label]
-            s = got["summary"]
-            if s["check_passed"] is not True:
-                raise AssertionError(f"model_axis {label} rank {r}: engine "
-                                     "streams != sequential reference")
-            steps = s["pool_steps"]
-            want = {"rmsnorm": 81 * steps, "decode_attention": 40 * steps,
-                    "coded_combine": 0, "quantized_combine": 0,
-                    "packed_sign_combine": 0}
-            if steps <= 0 or got["launches"] != want:
-                raise AssertionError(f"model_axis {label} rank {r}: launch "
-                                     f"counts {got['launches']} != {want}")
-            agree = []
-            for req, first in zip(reqs, firsts):
-                a = got["results"][str(req.uid)]
-                b = one_streams[req.uid]
-                n = next((i for i, (x, y) in enumerate(zip(a, b))
-                          if x != y), len(b))
-                if n < first:
-                    raise AssertionError(
-                        f"model_axis {label} rank {r}: request {req.uid} "
-                        f"parts from the one process at token {n}, before "
-                        f"its first near-tie at {first}")
-                agree.append(n)
-        s = outs[0][label]["summary"]
-        rows[label] = {
-            "layout": s["layout"], "slots_per_rank": s["slots_per_rank"],
-            "tokens_per_s": s["tokens_per_s"], "pool_steps": s["pool_steps"],
-            "check_passed": s["check_passed"],
-            "teacher_forced_max_abs_diff": err,
-            "max_abs_logit": one_lg.abs().max().item(),
-            "near_tie_eps": 2 * err, "first_near_tie": firsts,
-            # the tokens the stream rule held equal (those before each
-            # request's first near-tie), of all the generated ones
-            "stream_rule_tokens": sum(min(f, len(one_streams[q.uid]))
-                                      for f, q in zip(firsts, reqs)),
-            "generated_tokens": sum(len(one_streams[q.uid]) for q in reqs),
-            "agree_tokens": agree,
-            "streams_equal": sum(a == len(one_streams[q.uid])
-                                 for a, q in zip(agree, reqs)),
-            "peak_gb": [o[label]["peak_bytes"] / 1e9 for o in outs],
-            "wall_s": [o[label]["wall_s"] for o in outs],
-            "bytes_per_pool_step": {
-                k: v / max(1, s["pool_steps"]) for k, v in
-                outs[0][label]["traffic"].items() if v},
-            "launches": outs[0][label]["launches"]}
-        for k, v in outs[0][label]["launches"].items():
+    full = get_config(arch)
+    key = f"{arch} serve (1, 2)"
+    lg, one_lg = tf[key], one["logits"]
+    err = (lg - one_lg).abs().max().item()
+    if not err <= MA_LOGIT_ATOL:
+        raise AssertionError(f"model_axis {key}: teacher-forced logits "
+                             f"{err} from the one process's "
+                             f"(> {MA_LOGIT_ATOL})")
+    firsts = _first_near_tie(one_lg, full.vocab_size, 2 * err)
+    reqs = _ma_requests(["--arch", arch] + MA_FAMILY_SERVE_ARGS)
+    one_streams = one["streams"]
+    agree = []
+    for r, o in enumerate(outs):
+        got = o[key]
+        s = got["summary"]
+        if s["check_passed"] is not True:
+            raise AssertionError(f"model_axis {key} rank {r}: engine "
+                                 "streams != sequential reference")
+        steps = s["pool_steps"]
+        want = {"rmsnorm": _norms(full, "decode") * steps,
+                "decode_attention": _attentions(full) * steps,
+                "coded_combine": 0, "quantized_combine": 0,
+                "packed_sign_combine": 0}
+        if steps <= 0 or got["launches"] != want:
+            raise AssertionError(f"model_axis {key} rank {r}: launch "
+                                 f"counts {got['launches']} != {want}")
+        agree = []
+        for req, first in zip(reqs, firsts):
+            a = got["results"][str(req.uid)]
+            b = one_streams[req.uid]
+            n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     len(b))
+            if n < first:
+                raise AssertionError(
+                    f"model_axis {key} rank {r}: request {req.uid} parts "
+                    f"from the one process at token {n}, before its "
+                    f"first near-tie at {first}")
+            agree.append(n)
+    s = outs[0][key]["summary"]
+    steps = max(1, s["pool_steps"])
+    with_heads = {}
+    if full.arch_type == "hybrid":
+        # the shared attention's query and KV heads a rank (both divide 2)
+        with_heads["attention_heads_a_rank"] = [full.n_heads // 2,
+                                                full.n_kv_heads // 2]
+    rows["serve (1, 2)"] = {
+        "n_layers": full.n_layers, "tokens_per_s": s["tokens_per_s"],
+        "one_process_tokens_per_s": one["serve"]["tokens_per_s"],
+        "pool_steps": s["pool_steps"], "check_passed": s["check_passed"],
+        "teacher_forced_max_abs_diff": err,
+        "max_abs_logit": one_lg.abs().max().item(),
+        "near_tie_eps": 2 * err, "first_near_tie": firsts,
+        "stream_rule_tokens": sum(min(f, len(one_streams[q.uid]))
+                                  for f, q in zip(firsts, reqs)),
+        "generated_tokens": sum(len(one_streams[q.uid]) for q in reqs),
+        "agree_tokens": agree,
+        "streams_equal": sum(a == len(one_streams[q.uid])
+                             for a, q in zip(agree, reqs)),
+        "peak_gb": [o[key]["peak_bytes"] / 1e9 for o in outs],
+        "wall_s": [o[key]["wall_s"] for o in outs],
+        "bytes_per_pool_step": {k: v / steps for k, v in
+                                outs[0][key]["traffic"].items() if v},
+        "dtype": MA_FAMILY_SERVE_DTYPE,
+        "gather_at_use_bytes_per_pass": _ma_gather_at_use_bytes(
+            full, 4 if MA_FAMILY_SERVE_DTYPE == "float32" else 2),
+        "launches": outs[0][key]["launches"], **with_heads}
+    for k, v in outs[0][key]["launches"].items():
+        totals[k] = totals.get(k, 0) + v
+    for label, c in one["counts"].items():
+        for k, v in c.items():
             totals[k] = totals.get(k, 0) + v
-    _say("model_axis", card=card, arch="granite-3-8b", train_n_layers=2,
-         train_dtype=MA_DTYPE, steps=MA_STEPS, rtol=MA_RTOL,
-         logit_atol=MA_LOGIT_ATOL, spawn_s=spawn_s, runs=rows)
+    _say("model_axis_family", card=card, arch=arch, train_cuts=_cuts(
+        cfg, over), train_dtype=MA_DTYPE, steps=MA_FAMILY_STEPS,
+        rtol=MA_RTOL, logit_atol=MA_LOGIT_ATOL, runs=rows)
     return totals
 
 
@@ -2694,7 +3009,7 @@ def step_profile():
     """The serving pool step's device time by kernel family
     (``repro_torch.launch.step_profile --full-config``)."""
     from repro_torch.launch import step_profile as sp
-    out = sp.main(["--full-config"])
+    out = sp.main(["--full-config", "--steps", str(PROFILE_STEPS)])
     fam = out["kernel_families_ms_per_step"]
     _say("step_profile", arch=out["arch"], pos=out["pos"],
          decode_attention_ms_per_step=fam.get("decode_attention"),
@@ -2919,6 +3234,12 @@ def main() -> int:
     check_decode_attention(torch, dev, 8, 16, 4, 1024, 128, "bfloat16",
                            rng.integers(1, 1025, 8).tolist(),
                            "model axis M=2 B=8 H=16 KVH=4 S=1024 ragged")
+    # zamba2-1.2b's shared attention on one of two model ranks (16 query
+    # heads over 16 KV heads, G = 1, Dh 64)
+    for dtype in ("bfloat16", "float32"):
+        check_decode_attention(torch, dev, 8, 16, 16, 1024, 64, dtype,
+                               rng.integers(1, 1025, 8).tolist(),
+                               f"{MA_ZAMBA2_K2} {dtype}")
     # the other families' shapes: pixtral-12b's head dim 160 (G = 4, the
     # tensor cores in bf16, the CUDA cores in f32), zamba2-1.2b's and
     # seamless-m4t's 64 and deepseek-moe-16b's 128 at G = 1

@@ -55,8 +55,9 @@ from repro_torch.launch.mesh import (Layout, make_production_layout,
 # Bytes this process handed each collective, by kind: the training CLI and
 # chip_smoke.py read them as the per-rank traffic of a step.
 traffic = {"all_reduce": 0, "broadcast": 0, "all_gather": 0,
-           "reduce_scatter": 0, "model_all_reduce": 0,
-           "model_all_gather": 0, "model_reduce_scatter": 0}
+           "reduce_scatter": 0, "all_to_all": 0, "model_all_reduce": 0,
+           "model_all_gather": 0, "model_reduce_scatter": 0,
+           "model_all_to_all": 0}
 
 
 def _count(kind: str, x: torch.Tensor) -> None:
@@ -136,6 +137,22 @@ class Workers:
             return out.copy_(host)
         dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
                                    group=self.group)
+        return out
+
+    def all_to_all_(self, out: torch.Tensor, x: torch.Tensor,
+                    out_splits, in_splits) -> torch.Tensor:
+        """``x``'s leading-axis pieces sent to the ranks in order
+        (``in_splits[q]`` rows to rank q), and the pieces every rank sent
+        here concatenated into ``out`` in rank order (``out_splits[p]``
+        rows from rank p)."""
+        _count(self._key("all_to_all"), x)
+        if self._staged(x):
+            host = out.new_empty(out.shape, device="cpu")
+            dist.all_to_all_single(host, x.cpu(), out_splits, in_splits,
+                                   group=self.group)
+            return out.copy_(host)
+        dist.all_to_all_single(out, x, out_splits, in_splits,
+                               group=self.group)
         return out
 
     def _global(self, worker_rank: int) -> int:

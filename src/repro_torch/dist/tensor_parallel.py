@@ -16,13 +16,23 @@ fallbacks), and computes the one-process function:
   products with one ``reduce_from``. A whole leaf used on a rank's
   block (a column-parallel bias) goes through ``copy_to`` too, so its
   gradient is whole on every rank.
-* ``gather`` is gather at use, for a split leaf whose split a module
-  does not execute locally (Mamba2's projections, the xLSTM leaves,
-  attention whose split cuts a head): the leaf is all-gathered over the
-  model group where it is used, and its gradient is this rank's block
-  of the whole gradient (the computation after the gather is replicated,
-  so every rank holds the whole gradient). Placement and memory still
-  follow the spec.
+* ``reblock`` moves fixed sub-blocks of an activation's features
+  between the ranks by one all-to-all (its gradient goes back by the
+  inverse move): Mamba2's ``xz_proj`` yields a rank's two column blocks
+  of ``[x | z]``, and the heads a rank runs need its block of x and of
+  z. ``gather_act`` all-gathers an activation's features whose use on
+  every rank is partial (Mamba2's B, C and dt when ``bcdt_proj``
+  splits): its gradient is the reduce-scatter of the ranks' gradients.
+* ``gather`` (``whole_linear``) is gather at use, for a split leaf
+  whose split a module does not execute locally (attention and the
+  mLSTM where the split cuts a head, Mamba2 where M does not divide its
+  heads): the leaf is all-gathered over the model group where it is
+  used, and its gradient is this rank's block of the whole gradient
+  (the computation after the gather is replicated, so every rank holds
+  the whole gradient). Placement and memory still follow the spec.
+  Otherwise Mamba2, the mLSTM, the sLSTM and the MoE run a rank's heads,
+  units or hidden block locally (``models/ssm.py``, ``models/xlstm.py``,
+  ``models/moe.py``).
 * ``vocab_parallel_nll`` is the loss over logits split by vocabulary:
   the log-sum-exp is a max and a sum over the model group, the label's
   logit a masked sum.
@@ -90,6 +100,12 @@ def splits(whole: int) -> bool:
     return size() > 1 and int(whole) % size() == 0
 
 
+def local_size(whole: int) -> int:
+    """This rank's share of a dim of ``whole`` entries: whole/M where the
+    rule splits it, else all of it."""
+    return int(whole) // size() if splits(whole) else int(whole)
+
+
 def local_range(whole: int):
     """(lo, hi): this rank's block of a split dim of ``whole``."""
     per = int(whole) // size()
@@ -143,6 +159,50 @@ class _Gather(torch.autograd.Function):
         return piece.contiguous(), None, None
 
 
+class _GatherAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _gather_dim(x, -1, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = ctx.g
+        gm = torch.movedim(grad, -1, 0).contiguous()
+        out = gm.new_empty((gm.shape[0] // g.size,) + tuple(gm.shape[1:]))
+        g.reduce_scatter_(out, gm)
+        return torch.movedim(out, 0, -1), None
+
+
+def _reblock(x: torch.Tensor, have, want, g) -> torch.Tensor:
+    me = g.rank
+    owner = {b: r for r, bs in enumerate(have) for b in bs}
+    at = {b: i for i, b in enumerate(have[me])}
+    send = [[b for b in want[q] if owner[b] == me] for q in range(g.size)]
+    recv = [[b for b in want[me] if owner[b] == p] for p in range(g.size)]
+    sub = x.shape[-1] // len(have[me])
+    xs = torch.movedim(x.reshape(x.shape[:-1] + (len(have[me]), sub)),
+                       -2, 0)
+    inp = xs[[at[b] for q in send for b in q]].contiguous()
+    out = inp.new_empty((len(want[me]),) + tuple(inp.shape[1:]))
+    g.all_to_all_(out, inp, [len(r) for r in recv], [len(q) for q in send])
+    got = [b for r in recv for b in r]
+    out = out[[got.index(b) for b in want[me]]]
+    return torch.movedim(out, 0, -2).reshape(
+        x.shape[:-1] + (len(want[me]) * sub,))
+
+
+class _Reblock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, have, want, g):
+        ctx.have, ctx.want, ctx.g = have, want, g
+        return _reblock(x, have, want, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reblock(grad, ctx.want, ctx.have, ctx.g), None, None, None
+
+
 def copy_to(x: torch.Tensor) -> torch.Tensor:
     """Identity forward; the gradient all-reduced over the model group."""
     g = _ACTIVE[0]
@@ -172,24 +232,43 @@ def gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _Gather.apply(x, dim, g)
 
 
-def whole(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
-    """Gather at use: ``x`` whole along ``dim`` (``n`` entries), gathered
-    where the rule splits it."""
-    if splits(n) and x.shape[dim] != n:
-        return gather(x, dim)
-    return x
+def gather_act(x: torch.Tensor) -> torch.Tensor:
+    """The whole features (last dim) of an activation of which this
+    rank holds a block, each rank's use of the whole partial: the
+    gradient is the reduce-scatter (SUM) of every rank's."""
+    g = _ACTIVE[0]
+    if g is None:
+        return x
+    if not torch.is_grad_enabled() or not x.requires_grad:
+        return _gather_dim(x, -1, g)
+    return _GatherAct.apply(x, g)
+
+
+def reblock(x: torch.Tensor, have, want) -> torch.Tensor:
+    """Move equal sub-blocks of ``x``'s last dim between the ranks by one
+    all-to-all: rank r holds the sub-blocks ``have[r]`` (ids, in order,
+    concatenated in ``x``) and gets ``want[r]``, in that order. Every
+    id is held by one rank; the gradient takes the inverse move."""
+    g = _ACTIVE[0]
+    if g is None:
+        return x
+    have = tuple(tuple(h) for h in have)
+    want = tuple(tuple(w) for w in want)
+    if not torch.is_grad_enabled() or not x.requires_grad:
+        return _reblock(x, have, want, g)
+    return _Reblock.apply(x, have, want, g)
 
 
 def whole_linear(p: dict, n_out: Optional[int] = None,
                  n_in: Optional[int] = None) -> dict:
-    """A linear's ``{"w", "b"}`` with ``w`` whole: gathered along its
-    output dim (``n_out``, column-split leaves) or input dim (``n_in``,
-    row-split leaves) where the rule splits it. Biases are whole."""
+    """Gather at use: a linear's ``{"w", "b"}`` with ``w`` whole, gathered
+    along its output dim (``n_out`` entries, column-split leaves) or
+    input dim (``n_in``, row-split leaves) where the rule splits it.
+    Biases are whole."""
     w = p["w"]
-    if n_out is not None:
-        w = whole(w, -1, n_out)
-    if n_in is not None:
-        w = whole(w, -2, n_in)
+    for dim, n in ((-1, n_out), (-2, n_in)):
+        if n is not None and splits(n) and w.shape[dim] != n:
+            w = gather(w, dim)
     return dict(p, w=w)
 
 

@@ -30,7 +30,7 @@ all-reduce sums ``wo``'s partial products. The reference splits
 features (``H*Dh``), not heads, so where M does not divide the heads a
 split cuts a head (or ``wq`` splits while ``wk`` stays whole); the
 split leaves are then gathered at use and every rank computes all
-heads.
+heads (as Mamba2 and the mLSTM do where M does not divide theirs).
 """
 
 from __future__ import annotations

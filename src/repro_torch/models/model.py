@@ -32,8 +32,10 @@ states) are updated in place.
 
 On a model group (``dist.tensor_parallel.executing``) each rank holds
 its shards of the parameters (``tensor_parallel.shard_params``) and the
-modules run tensor-parallel (``layers``, ``attention``, ``moe``; the
-Mamba2 and xLSTM leaves are gathered at use). Where the vocabulary is
+modules run tensor-parallel on the rank's heads, units or hidden block
+(``layers``, ``attention``, ``moe``, ``ssm``, ``xlstm``); only a split
+that cuts a head (attention, the mLSTM, Mamba2 where M does not divide
+their heads) is gathered at use. Where the vocabulary is
 split, the LM head yields this rank's block of the logits: the training
 loss takes its log-sum-exp over the group
 (``tensor_parallel.vocab_parallel_nll``), and ``forward``, ``prefill``
@@ -470,7 +472,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
     ``max_len`` is the KV capacity (window size for sliding-window
     configs); ``pos`` pre-fills the cache position. On a model group
-    that splits whole heads the KV leaves hold this rank's KVH/M."""
+    that splits whole heads the KV leaves hold this rank's KVH/M, the
+    Mamba2 state its H/M heads and d_inner/M conv channels, the mLSTM
+    state its H/M heads and the sLSTM state its D/M units."""
     _check_arch(cfg)
     device = _device.resolve(device)
     at = cfg.arch_type

@@ -112,11 +112,12 @@ def moe_token_choice_dense(p, x, *, top_k: int, d_ff: Optional[int] = None,
     """Top-k token-choice router with *dense* expert compute (every
     expert runs on every token; the combine masks to the top k). O(E)
     compute, smoke scale only. Returns (y, Switch-style aux loss). On a
-    model group the expert stacks are gathered at use (``d_ff``)."""
-    if d_ff is not None:
-        p = dict(p, w_gate=tp.whole(p["w_gate"], -1, d_ff),
-                 w_up=tp.whole(p["w_up"], -1, d_ff),
-                 w_down=tp.whole(p["w_down"], -2, d_ff))
+    model group that splits ``d_ff`` each rank runs every expert on its
+    block of the hidden width, as ``moe_expert_choice`` does, and one
+    all-reduce sums the combined outputs; where M does not divide
+    ``d_ff`` the stacks are whole."""
+    if tp.size() > 1 and d_ff is None:
+        raise ValueError("moe on a model group needs its whole d_ff")
     E = p["router"]["w"].shape[-1]
     logits = linear(p["router"], x).float()                  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
@@ -125,10 +126,16 @@ def moe_token_choice_dense(p, x, *, top_k: int, d_ff: Optional[int] = None,
     combine = probs * mask
     combine = combine / torch.clamp(combine.sum(-1, keepdim=True),
                                     min=1e-9)
-    h = F.silu(torch.einsum("bsd,edf->besf", x, p["w_gate"].to(x.dtype))) \
-        * torch.einsum("bsd,edf->besf", x, p["w_up"].to(x.dtype))
+    split = d_ff is not None and tp.splits(d_ff)
+    xe = tp.copy_to(x) if split else x
+    if split:
+        combine = tp.copy_to(combine)
+    h = F.silu(torch.einsum("bsd,edf->besf", xe, p["w_gate"].to(x.dtype))) \
+        * torch.einsum("bsd,edf->besf", xe, p["w_up"].to(x.dtype))
     yo = torch.einsum("besf,efd->besd", h, p["w_down"].to(x.dtype))
     y = torch.einsum("bse,besd->bsd", combine.to(x.dtype), yo)
+    if split:
+        y = tp.reduce_from(y)
     if "shared" in p:
         y = y + mlp(p["shared"], x, shared_d_ff)
     frac_tokens = mask.mean(dim=(0, 1))                      # (E,)

@@ -18,9 +18,19 @@ masked difference exceeds float32's exp range (the reference's
 Autograd keeps the (B, nc, Q, Q, H) intra-chunk tensors of every layer
 (the reference rematerialises them under ``jax.checkpoint``).
 
-On a model group the split projections (``xz_proj``, ``bcdt_proj``,
-``out_proj``, by ``safe_param_specs``) are gathered at use and every rank
-runs all heads: executing Mamba2's split heads locally is left to do.
+On a model group of M ranks that divides the H heads a rank runs its
+H/M heads (its blocks of ``xz_proj`` and ``out_proj`` are whole heads):
+``xz_proj`` is column-parallel, and one all-to-all
+(``tensor_parallel.reblock``) turns the rank's two column blocks of
+``[x | z]`` into its heads' x and z; a split ``bcdt_proj`` yields a
+block of B | C | dt whose blocks cut across those three, so the features
+are all-gathered (``gather_act``) and the rank takes B, C and its heads'
+dt (a whole ``bcdt_proj`` is computed whole, its weight through
+``copy_to``); ``conv_w``, ``A_log``, ``dt_bias`` and ``D`` are read by
+block (``block_of``); ``out_proj`` is row-parallel with one all-reduce.
+The decode state holds the rank's heads and channels. Where M does not
+divide H the split projections are gathered at use and every rank runs
+all heads.
 """
 
 from __future__ import annotations
@@ -76,6 +86,40 @@ def _project(p, u, d_state):
     return x, z, Bs, Cs, dt
 
 
+def _heads(p, u, d_state: int, expand: int, head_p: int):
+    """(p, x, z, B, C, dt, local): the block's leaves as this rank uses
+    them and its heads' projections; ``local`` where the rank runs H/M
+    heads (``out_proj`` then needs ``tp.reduce_from``)."""
+    d_inner = expand * u.shape[-1]
+    H = d_inner // head_p
+    if not tp.splits(H):
+        p = _whole(p, u.shape[-1], d_state, expand, head_p)
+        return (p,) + _project(p, u, d_state) + (False,)
+    M = tp.size()
+    uc = tp.copy_to(u)
+    # the rank's column blocks 2r, 2r+1 of [x | z] -> x and z of head
+    # block r (x of block k is sub-block k, z is sub-block M + k)
+    xz = tp.reblock(linear(p["xz_proj"], uc),
+                    [(2 * q, 2 * q + 1) for q in range(M)],
+                    [(q, M + q) for q in range(M)])
+    x, z = xz.chunk(2, dim=-1)
+    if tp.splits(2 * d_state + H):
+        bcdt = tp.gather_act(linear(p["bcdt_proj"], uc))
+    else:
+        bcdt = linear({k: tp.copy_to(v) for k, v in p["bcdt_proj"].items()},
+                      uc)
+    Bs, Cs, dt = bcdt.split([d_state, d_state, H], dim=-1)
+    lo, hi = tp.local_range(H)
+    p = dict(p, conv_w=tp.block_of(p["conv_w"], d_inner),
+             **{k: tp.block_of(p[k], H) for k in ("A_log", "dt_bias", "D")})
+    return p, x, z, Bs, Cs, dt[..., lo:hi], True
+
+
+def _out(p, y, local: bool):
+    y = linear(p["out_proj"], y)
+    return tp.reduce_from(y) if local else y
+
+
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
     """Zero-pad dim 1 (the sequence) at its end."""
     if not pad:
@@ -98,10 +142,9 @@ def ssm_forward(p, u, *, d_state: int, expand: int = 2, head_p: int = 64,
                 chunk: int = 256) -> torch.Tensor:
     """u: (B, S, D) -> (B, S, D). Chunked SSD."""
     B, S, D = u.shape
-    d_inner = expand * D
-    H = d_inner // head_p
-    p = _whole(p, D, d_state, expand, head_p)
-    x, z, Bs, Cs, dt = _project(p, u, d_state)
+    p, x, z, Bs, Cs, dt, local = _heads(p, u, d_state, expand, head_p)
+    H = dt.shape[-1]
+    d_inner = H * head_p
 
     # causal depthwise conv on x, in x's dtype
     K = p["conv_w"].shape[0]
@@ -154,7 +197,7 @@ def ssm_forward(p, u, *, d_state: int, expand: int = 2, head_p: int = 64,
                                                           None]
     y = y[:, :S].reshape(B, S, d_inner).to(u.dtype)
     y = y * F.silu(z)
-    return linear(p["out_proj"], y)
+    return _out(p, y, local)
 
 
 def ssm_decode(p, u, state, *, d_state: int, expand: int = 2,
@@ -162,12 +205,12 @@ def ssm_decode(p, u, state, *, d_state: int, expand: int = 2,
     """Single-step recurrence. u: (B, 1, D).
 
     state = {"h": (B, H, N, P) float32, "conv": (B, K-1, d_inner)
-    float32}, updated in place and returned."""
+    float32} (the rank's H/M heads and d_inner/M channels where it runs
+    H/M heads), updated in place and returned."""
     B, _, D = u.shape
-    d_inner = expand * D
-    H = d_inner // head_p
-    p = _whole(p, D, d_state, expand, head_p)
-    x, z, Bs, Cs, dt = _project(p, u, d_state)
+    p, x, z, Bs, Cs, dt, local = _heads(p, u, d_state, expand, head_p)
+    H = dt.shape[-1]
+    d_inner = H * head_p
 
     K = p["conv_w"].shape[0]
     # the window is float32, as the reference's concatenation promotes it
@@ -190,14 +233,15 @@ def ssm_decode(p, u, state, *, d_state: int, expand: int = 2,
     y = y * F.silu(z)
     state["h"].copy_(h)
     state["conv"].copy_(win[:, 1:])
-    return linear(p["out_proj"], y), state
+    return _out(p, y, local), state
 
 
 def init_ssm_state(batch: int, d_model: int, d_state: int, *,
                    expand: int = 2, head_p: int = 64, conv_k: int = 4,
                    device, lead=()):
-    d_inner = expand * d_model
-    H = d_inner // head_p
+    """The decode state of the heads this rank runs."""
+    H = tp.local_size(expand * d_model // head_p)
+    d_inner = H * head_p
     return {
         "h": torch.zeros(*lead, batch, H, d_state, head_p,
                          dtype=torch.float32, device=device),

@@ -14,10 +14,17 @@ order. The mLSTM's masked decay is exp of the masked log-decay
 differences, as in ``ssm.masked_decay``. Decode states are float32 and
 updated in place.
 
-On a model group the leaves ``safe_param_specs`` splits (the mLSTM's
-``wq`` / ``wk`` / ``wv`` / ``wo``, the sLSTM's ``wo``) are gathered at
-use and every rank runs all heads: executing the split heads locally is
-left to do.
+On a model group of M ranks the blocks run a rank's share locally where
+M divides it. The mLSTM, where M divides its heads, runs H/M heads:
+``wq`` / ``wk`` / ``wv`` column-parallel, the rank's input and forget
+gate columns of the whole ``w_gates`` through ``copy_to``, the per-head
+normaliser local, ``wo`` row-parallel with one all-reduce; its state
+holds the rank's heads. The sLSTM, where M divides d_model (``wo``
+splits), runs D/M units: their z, i, f and o columns of the whole
+``w_in`` through ``copy_to`` (so each step all-reduces w_in's whole
+D x 4D gradient), the scan on D/M units, ``wo`` row-parallel; its state
+holds the rank's units. Otherwise the split leaves are gathered at use
+(a split that cuts an mLSTM head) and every rank runs all heads.
 """
 
 from __future__ import annotations
@@ -53,22 +60,47 @@ def _whole_mlstm(p, d: int):
                 wo=tp.whole_linear(p["wo"], n_in=d))
 
 
-def _whole_slstm(p, d: int):
-    if tp.size() == 1:
-        return p
-    return dict(p, wo=tp.whole_linear(p["wo"], n_in=d))
+def _mlstm_parts(p, u, n_heads: int):
+    """(p, u, gates, local): the mLSTM's leaves and input as this rank
+    uses them, its heads' (i | f) gate pre-activations (float32), and
+    whether it runs H/M heads (``wo`` then needs ``tp.reduce_from``)."""
+    if not tp.splits(n_heads):
+        p = _whole_mlstm(p, u.shape[-1])
+        return p, u, linear(p["w_gates"], u).float(), False
+    lo, hi = tp.local_range(n_heads)
+    u = tp.copy_to(u)
+    w = tp.copy_to(p["w_gates"]["w"]).unflatten(-1, (2, n_heads))
+    gates = u @ w[..., lo:hi].flatten(-2).to(u.dtype)
+    return p, u, gates.float(), True
+
+
+def _slstm_parts(p, u):
+    """(zifo, local): this rank's units' z | i | f | o pre-activations
+    (float32), and whether it runs D/M units (``wo`` then needs
+    ``tp.reduce_from``)."""
+    D = u.shape[-1]
+    if not tp.splits(D):
+        return linear(p["w_in"], u).float(), False
+    lo, hi = tp.local_range(D)
+    w = tp.copy_to(p["w_in"]["w"]).unflatten(-1, (4, D))
+    zifo = tp.copy_to(u) @ w[..., lo:hi].flatten(-2).to(u.dtype)
+    return zifo.float(), True
+
+
+def _out(p, y, local: bool):
+    y = linear(p["wo"], y)
+    return tp.reduce_from(y) if local else y
 
 
 def mlstm_forward(p, u, *, n_heads: int, chunk: int = 256) -> torch.Tensor:
     """u: (B, S, D) -> (B, S, D). Chunked decay-gated linear attention."""
     B, S, D = u.shape
-    p = _whole_mlstm(p, D)
-    H = n_heads
-    P = D // H
+    P = D // n_heads
+    p, u, gates, local = _mlstm_parts(p, u, n_heads)
+    H = gates.shape[-1] // 2
     q = linear(p["wq"], u).reshape(B, S, H, P)
     k = linear(p["wk"], u).reshape(B, S, H, P) * (P ** -0.5)
     v = linear(p["wv"], u).reshape(B, S, H, P)
-    gates = linear(p["w_gates"], u).float()
     i_gate = torch.sigmoid(gates[..., :H])                      # (B,S,H)
     log_f = F.logsigmoid(gates[..., H:])                        # <= 0
 
@@ -118,20 +150,22 @@ def mlstm_forward(p, u, *, n_heads: int, chunk: int = 256) -> torch.Tensor:
     qn_intra = scores.sum(dim=3)                                # (B,nc,Q,H)
     denom = torch.clamp(torch.abs(qn_intra + n_inter), min=1.0)[..., None]
     y = (y_intra + y_inter) / denom
-    y = y.reshape(B, Sp, D)[:, :S].to(u.dtype)
-    return linear(p["wo"], y)
+    y = y.reshape(B, Sp, H * P)[:, :S].to(u.dtype)
+    return _out(p, y, local)
 
 
 def mlstm_decode(p, u, state, *, n_heads: int) -> Tuple[torch.Tensor, dict]:
-    """u: (B, 1, D); state = {"C": (B, H, P, P), "n": (B, H, P)} float32,
-    updated in place and returned."""
+    """u: (B, 1, D); state = {"C": (B, H, P, P), "n": (B, H, P)} float32
+    (the rank's heads where it runs H/M), updated in place and
+    returned."""
     B, _, D = u.shape
-    H, P = n_heads, D // n_heads
-    p = _whole_mlstm(p, D)
+    P = D // n_heads
+    p, u, gates, local = _mlstm_parts(p, u, n_heads)
+    gates = gates[:, 0]
+    H = gates.shape[-1] // 2
     q = linear(p["wq"], u).reshape(B, H, P).float()
     k = (linear(p["wk"], u).reshape(B, H, P) * (P ** -0.5)).float()
     v = linear(p["wv"], u).reshape(B, H, P).float()
-    gates = linear(p["w_gates"], u).float()[:, 0]
     i_g = torch.sigmoid(gates[..., :H])
     f_g = torch.sigmoid(gates[..., H:])
     C = f_g[..., None, None] * state["C"] + i_g[..., None, None] * \
@@ -139,18 +173,20 @@ def mlstm_decode(p, u, state, *, n_heads: int) -> Tuple[torch.Tensor, dict]:
     n = f_g[..., None] * state["n"] + i_g[..., None] * k
     num = torch.einsum("bhp,bhpr->bhr", q, C)
     den = torch.clamp(torch.abs(torch.einsum("bhp,bhp->bh", q, n)), min=1.0)
-    y = (num / den[..., None]).reshape(B, 1, D).to(u.dtype)
+    y = (num / den[..., None]).reshape(B, 1, H * P).to(u.dtype)
     state["C"].copy_(C)
     state["n"].copy_(n)
-    return linear(p["wo"], y), state
+    return _out(p, y, local), state
 
 
 def init_mlstm_state(batch: int, d_model: int, n_heads: int, *, device,
                      lead=()):
+    """The state of the heads this rank runs."""
     P = d_model // n_heads
-    return {"C": torch.zeros(*lead, batch, n_heads, P, P,
+    H = tp.local_size(n_heads)
+    return {"C": torch.zeros(*lead, batch, H, P, P,
                              dtype=torch.float32, device=device),
-            "n": torch.zeros(*lead, batch, n_heads, P, dtype=torch.float32,
+            "n": torch.zeros(*lead, batch, H, P, dtype=torch.float32,
                              device=device)}
 
 
@@ -186,8 +222,7 @@ def linear_scan(f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def slstm_forward(p, u) -> torch.Tensor:
     """u: (B, S, D) -> (B, S, D). The diagonal cell as a linear scan."""
-    p = _whole_slstm(p, u.shape[-1])
-    zifo = linear(p["w_in"], u).float()
+    zifo, local = _slstm_parts(p, u)
     z, i, f, o = zifo.chunk(4, dim=-1)
     z = torch.tanh(z)
     i = torch.sigmoid(i)
@@ -197,14 +232,14 @@ def slstm_forward(p, u) -> torch.Tensor:
     cn = linear_scan(torch.cat([f, f], dim=-1), torch.cat([i * z, i], -1))
     c, n = cn.chunk(2, dim=-1)
     h = o * c / torch.clamp(n, min=1e-6)
-    return linear(p["wo"], h.to(u.dtype))
+    return _out(p, h.to(u.dtype), local)
 
 
 def slstm_decode(p, u, state) -> Tuple[torch.Tensor, dict]:
-    """state = {"c": (B, D), "n": (B, D)} float32, updated in place and
-    returned."""
-    p = _whole_slstm(p, u.shape[-1])
-    zifo = linear(p["w_in"], u).float()[:, 0]
+    """state = {"c": (B, D), "n": (B, D)} float32 (the rank's D/M units
+    where it runs them), updated in place and returned."""
+    zifo, local = _slstm_parts(p, u)
+    zifo = zifo[:, 0]
     z, i, f, o = zifo.chunk(4, dim=-1)
     z = torch.tanh(z)
     i = torch.sigmoid(i)
@@ -215,11 +250,13 @@ def slstm_decode(p, u, state) -> Tuple[torch.Tensor, dict]:
     h = (o * c / torch.clamp(n, min=1e-6))[:, None].to(u.dtype)
     state["c"].copy_(c)
     state["n"].copy_(n)
-    return linear(p["wo"], h), state
+    return _out(p, h, local), state
 
 
 def init_slstm_state(batch: int, d_model: int, *, device, lead=()):
-    return {"c": torch.zeros(*lead, batch, d_model, dtype=torch.float32,
+    """The state of the units this rank runs."""
+    d = tp.local_size(d_model)
+    return {"c": torch.zeros(*lead, batch, d, dtype=torch.float32,
                              device=device),
-            "n": torch.zeros(*lead, batch, d_model, dtype=torch.float32,
+            "n": torch.zeros(*lead, batch, d, dtype=torch.float32,
                              device=device)}

@@ -10,8 +10,9 @@ of the per-layer stacked leaves (dim 0 of an unstacked encoder output
 Over a worker group (``workers``, a ``process_group.Workers``) the pool
 is placed as the reference's ``cache_specs`` places it: the slot axis is
 split over the data ranks (rank r holds slots ``[r*n/W, (r+1)*n/W)``)
-and stays whole where the slots do not divide W, and the KV heads are
-the rank's ``wk`` / ``wv`` shard on its model group.
+and stays whole where the slots do not divide W, and on its model
+group the KV heads are the rank's ``wk`` / ``wv`` shard and the
+recurrent states hold the heads or units the rank runs.
 """
 
 from __future__ import annotations

@@ -28,7 +28,9 @@ sequences of 32 in blocks of 2, p = 0.2).
   ``--fsdp``); the FSDP run resumes the one-process step-6 checkpoint,
   and the whole tensors it writes restore into a one-process run;
   ``--chaos kill:1@3 --compress int8`` on (2, 2) against the same
-  one-process run.
+  one-process run; zamba2 (Mamba2's split heads run locally on the
+  model group) dedup ``--fsdp`` on (2, 2) against the one-process
+  zamba2 run within 1e-4.
 
 The earlier pins mean the data axis alone and run on (4, 1)
 (``main(model=1)``).
@@ -56,6 +58,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGS = ["--arch", "qwen1.5-4b", "--steps", "12", "--seq-len", "32",
          "--block-size", "2", "--straggler-p", "0.2"]
 WORLD = 4
+# zamba2's smoke config on the dedup path, 6 steps: at the CLI's lr
+# its training roughly multiplies a rounding difference by 3-10 a step
+# from the fourth (rank runs against one process at 8 steps: the data
+# axis alone, (4, 1) under --fsdp, 2.2e-4 at the last step; (2, 2)
+# 7.4e-4 at the last, 3.9e-5 at the sixth)
+ZAMBA2 = ["--arch", "zamba2-1.2b", "--steps", "6", *FLAGS[4:]]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -111,6 +119,7 @@ def runs(tmp_path_factory):
     single_int8 = ttrain.main(["--device", "cpu", *FLAGS, "--compress",
                                "int8", "--ckpt-dir",
                                str(tmp / "single_int8")])
+    single_zamba2 = ttrain.main(["--device", "cpu", *ZAMBA2])
     shutil.copytree(tmp / "single", tmp / "resume")
     os.remove(tmp / "resume" / "ckpt_00000012.npz")
     shutil.copytree(tmp / "resume", tmp / "resume22")
@@ -134,13 +143,16 @@ def runs(tmp_path_factory):
             "chaos22": (cpu + ["--chaos", "kill:1@3", "--compress", "int8"],
                         None),
             "resume22": (cpu + ["--fsdp", "--ckpt-dir",
-                                str(tmp / "resume22")], None)}
+                                str(tmp / "resume22")], None),
+            "zamba2_fsdp22": (["--device", "cpu", *ZAMBA2, "--fsdp"],
+                              None)}
     mp.spawn(_entry, args=(WORLD, str(tmp), jobs), nprocs=WORLD, join=True)
     ranks = [torch.load(tmp / f"out{r}.pt", weights_only=False)
              for r in range(WORLD)]
     return {"tmp": tmp, "single": single, "single_chaos": single_chaos,
             "single_chaos_int8": single_chaos_int8,
-            "single_int8": single_int8, "ranks": ranks}
+            "single_int8": single_int8, "single_zamba2": single_zamba2,
+            "ranks": ranks}
 
 
 def _rank0(runs, key):
@@ -313,3 +325,15 @@ def test_model_axis_checkpoints_cross_layouts(runs):
     back = ttrain.main(["--device", "cpu", *FLAGS[:2], "--steps", "14",
                         *FLAGS[4:], "--ckpt-dir", str(tmp / "fsdp22")])
     assert back["start_step"] == 12 and len(back["losses"]) == 2
+
+
+def test_model_axis_zamba2_fsdp_on_2x2_matches_one_process(runs):
+    """Mamba2's heads split over the model group (4 of 8 a rank) and the
+    shards over the data group under ``--fsdp``."""
+    p, single = _rank0(runs, "zamba2_fsdp22"), runs["single_zamba2"]
+    _resident_as_placed(p)
+    assert p["fsdp"] and p["path"] == single["path"] == "dedup"
+    np.testing.assert_allclose(p["losses"], single["losses"], rtol=1e-4)
+    assert p["collective_bytes_per_step"]["model_all_to_all"] > 0
+    assert p["resident_bytes"]["params"] < \
+        single["resident_bytes"]["params"] * 0.3

@@ -10,8 +10,10 @@ Phases: ``long`` (``long_attention``), ``prefill`` (``prefill_32k``),
 (the distributed phase's chaos run on two gloo ranks against one process,
 in ``--chaos-dtype`` activations, float32 by default as in
 ``chip_smoke.py``) and ``model_axis`` (decode_attention at the model
-axis's 16/4 heads against its plain version, then ``model_axis``: two
-gloo ranks on layout (1, 2) and (2, 1)). Exits non-zero if any phase
+axis's 16/4 heads and at zamba2's 16/16 against its plain version, then
+``model_axis``: two gloo ranks on layout (1, 2) and (2, 1)) and
+``model_axis_families`` (zamba2's 16/16 heads, then ``model_axis``'s
+zamba2-1.2b and xlstm-1.3b runs alone). Exits non-zero if any phase
 raised.
 """
 
@@ -30,7 +32,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import chip_smoke as C  # noqa: E402
 
-PHASES = ("long", "prefill", "remat", "chaos", "model_axis")
+PHASES = ("long", "prefill", "remat", "chaos", "model_axis",
+          "model_axis_families")
 
 
 def _chaos(torch, dtype):
@@ -76,17 +79,26 @@ def main(argv=None) -> int:
             elif name == "remat":
                 C.remat(torch, dev, {"ms_per_step": None,
                                      "peak_mem_gb": None})
-            elif name == "model_axis":
+            elif name in ("model_axis", "model_axis_families"):
                 import numpy as np
-                C.check_decode_attention(
-                    torch, dev, 8, 16, 4, 1024, 128, "bfloat16",
-                    np.random.default_rng(0).integers(1, 1025, 8).tolist(),
-                    "model axis M=2 B=8 H=16 KVH=4 S=1024 ragged")
+                rng = np.random.default_rng(0)
+                if name == "model_axis":
+                    C.check_decode_attention(
+                        torch, dev, 8, 16, 4, 1024, 128, "bfloat16",
+                        rng.integers(1, 1025, 8).tolist(),
+                        "model axis M=2 B=8 H=16 KVH=4 S=1024 ragged")
+                for dtype in ("bfloat16", "float32"):
+                    C.check_decode_attention(
+                        torch, dev, 8, 16, 16, 1024, 64, dtype,
+                        rng.integers(1, 1025, 8).tolist(),
+                        f"{C.MA_ZAMBA2_K2} {dtype}")
                 card = subprocess.run(
                     ["nvidia-smi", "--query-gpu=name,power.limit",
                      "--format=csv,noheader"], capture_output=True,
                     text=True, timeout=60).stdout.strip()
-                C.model_axis(torch, dev, card)
+                C.model_axis(torch, dev, card, archs=(
+                    None if name == "model_axis" else
+                    tuple(a for a, _ in C.MA_FAMILIES)))
             else:
                 _chaos(torch, args.chaos_dtype)
         except Exception:           # report it, run the other phases

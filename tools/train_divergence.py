@@ -1,6 +1,7 @@
 """How far two training runs part when only rounding differs, on the card.
 
     python tools/train_divergence.py          # from the repository root
+    python tools/train_divergence.py --only "8 layers"   # cases by name
 
 For each case, runs the training driver (``repro_torch.launch.train``)
 on one NVIDIA GPU several ways from the same seed and prints the largest
@@ -12,13 +13,18 @@ relative gap between the loss streams of each pair, as one JSON line:
   versions (``_FORCE = "ref"``), the gap the kernels' rounding opens;
 - ``plain_vs_perturbed``: the plain versions against themselves with
   every float parameter multiplied by (1 + 1e-7 N(0, 1)), the gap any
-  rounding-sized change opens -- the yardstick for the first.
+  rounding-sized change opens -- the yardstick for the first;
+  ``kernel_vs_perturbed`` the same through the kernels, and
+  ``*_steps`` each pair's gap step by step.
 
 Cases: zamba2-1.2b's 4-layer smoke config (float32, lr 3e-3, 6 steps),
-xlstm-1.3b at full width and 16 layers (bf16, lr 1e-4, 12 steps), and
+xlstm-1.3b at full width and 16 layers (bf16, lr 1e-4, 12 steps),
+xlstm-1.3b at full width and 8 layers as ``chip_smoke.py``'s model-axis
+runs train it (float32, lr 1e-4, 4 steps of 4,096 tokens), and
 granite-3-8b's smoke config as a control.
 """
 
+import argparse
 import contextlib
 import io
 import json
@@ -47,6 +53,12 @@ CASES = (
      .with_overrides(n_layers=16),
      ["--steps", "12", "--seq-len", "256", "--block-size", "4", "--lr",
       "1e-4", "--log-every", "4", "--seed", "0"]),
+    ("xlstm-1.3b, 8 layers, float32", get_config("xlstm-1.3b")
+     .with_overrides(n_layers=8, dtype="float32"),
+     ["--steps", "4", "--seq-len", "256", "--block-size", "4",
+      "--machines", "4", "--scheme", "expander", "--replication", "2",
+      "--straggler-model", "bernoulli", "--straggler-p", "0.2", "--lr",
+      "1e-4", "--log-every", "4", "--seed", "0"]),
     ("granite-3-8b smoke", get_config("granite-3-8b").smoke_variant(),
      SMOKE),
 )
@@ -72,22 +84,36 @@ def losses(cfg, argv, force, perturb=0.0):
         rn_ops._FORCE = None
 
 
+def steps(a, b):
+    return np.abs(a / b - 1).tolist()
+
+
 def gap(a, b):
     return float(np.max(np.abs(a / b - 1)))
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default="",
+                    help="run the cases whose name holds this text")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("train_divergence: needs an NVIDIA GPU")
-    for name, cfg, argv in CASES:
-        k1, k2 = losses(cfg, argv, None), losses(cfg, argv, None)
-        p1, p2 = losses(cfg, argv, "ref"), losses(cfg, argv, "ref")
-        pp = losses(cfg, argv, "ref", PERTURB)
+    for name, cfg, cli in CASES:
+        if args.only not in name:
+            continue
+        k1, k2 = losses(cfg, cli, None), losses(cfg, cli, None)
+        p1, p2 = losses(cfg, cli, "ref"), losses(cfg, cli, "ref")
+        pp = losses(cfg, cli, "ref", PERTURB)
+        kp = losses(cfg, cli, None, PERTURB)
         print(json.dumps({
             "case": name, "device": torch.cuda.get_device_name(0),
             "kernel_vs_kernel": gap(k1, k2), "plain_vs_plain": gap(p1, p2),
             "kernel_vs_plain": gap(k1, p1),
-            "plain_vs_perturbed": gap(pp, p1), "perturbation": PERTURB,
+            "plain_vs_perturbed": gap(pp, p1),
+            "kernel_vs_perturbed": gap(kp, k1), "perturbation": PERTURB,
+            "kernel_vs_plain_steps": steps(k1, p1),
+            "kernel_vs_perturbed_steps": steps(kp, k1),
             "kernel_losses": k1.tolist(), "plain_losses": p1.tolist()}),
             flush=True)
 

@@ -89,6 +89,7 @@ from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels.coded_combine import ops as cc_ops
 from repro_torch.models import model as M
 from repro_torch.optim import optimizers as opt_mod
+from repro_torch.spans import span
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +153,13 @@ def value_and_grad(loss_fn: Callable, params):
     ``params``. The parameters themselves are left untouched: the
     forward runs on detached views that require grad. A parameter the
     loss does not read (the audio family's encoder on a batch with no
-    ``src``) gets a zero gradient, as ``jax.grad`` gives it."""
+    ``src``) gets a zero gradient, as ``jax.grad`` gives it. It runs in
+    the ``forward_backward`` span."""
+    with span("forward_backward"):
+        return _value_and_grad(loss_fn, params)
+
+
+def _value_and_grad(loss_fn: Callable, params):
     live = T.map(lambda p: p.detach().requires_grad_(True), params)
     leaves = T.leaves(live)
     with torch.enable_grad():
@@ -166,18 +173,20 @@ def value_and_grad(loss_fn: Callable, params):
 def _per_row_values_and_grads(params, rows: int, row_loss: Callable):
     """(losses (rows,), grads tree with a leading rows axis): one
     backward pass per row, ``row_loss(params, i)``, each written into a
-    preallocated stack per leaf."""
+    preallocated stack per leaf, in the row's ``forward_backward``
+    span."""
     leaves = T.leaves(params)
     dev = leaves[0].device
     stacks = [torch.empty((rows,) + tuple(p.shape), dtype=p.dtype,
                           device=dev) for p in leaves]
     losses = torch.empty(rows, dtype=torch.float32, device=dev)
     for i in range(rows):
-        loss, grads = value_and_grad(lambda p: row_loss(p, i), params)
-        losses[i] = loss
-        for s, g in zip(stacks, T.leaves(grads)):
-            s[i].copy_(g)
-        del grads
+        with span("forward_backward"):
+            loss, grads = _value_and_grad(lambda p: row_loss(p, i), params)
+            losses[i] = loss
+            for s, g in zip(stacks, T.leaves(grads)):
+                s[i].copy_(g)
+            del grads
     return losses, T.like(params, stacks)
 
 
@@ -357,16 +366,18 @@ def _cross_rank(grads, workers, split: bool, fsdp):
     """Finish the cross-rank sum of this rank's partial gradients: under
     FSDP the reduce-scatter to this rank's shards, else one all_reduce
     when the rows were split (whole rows need no sum)."""
-    if fsdp is not None:
-        return fsdp.reduce(grads, summed=not split)
-    return _sum_over(grads, workers) if split else grads
+    with span("allreduce"):
+        if fsdp is not None:
+            return fsdp.reduce(grads, summed=not split)
+        return _sum_over(grads, workers) if split else grads
 
 
 def _sum_loss(loss, workers, split: bool):
-    if split:
-        loss = loss.reshape(1).clone()
-        workers.all_reduce_(loss)
-        loss = loss.reshape(())
+    with span("allreduce"):
+        if split:
+            loss = loss.reshape(1).clone()
+            workers.all_reduce_(loss)
+            loss = loss.reshape(())
     return loss
 
 
@@ -395,15 +406,17 @@ def _finisher(optimizer, alpha_weights, dedup: bool, fsdp=None,
             return tp.global_norm(grads, shards, fsdp)
 
     def finish(params, opt_state, loss, grads, w, extra=None):
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        params = opt_mod.apply_updates(params, updates)
-        metrics = {"loss": loss, "grad_norm": norm_of(grads)}
-        if extra:
-            metrics.update(extra)
-        if dedup:
-            metrics["alpha_bar"] = w.mean()
-        elif aw is not None:
-            metrics["alpha_bar"] = torch.dot(aw.to(w.device), w)
+        with span("optimizer"):
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            params = opt_mod.apply_updates(params, updates)
+        with span("step_metrics"):
+            metrics = {"loss": loss, "grad_norm": norm_of(grads)}
+            if extra:
+                metrics.update(extra)
+            if dedup:
+                metrics["alpha_bar"] = w.mean()
+            elif aw is not None:
+                metrics["alpha_bar"] = torch.dot(aw.to(w.device), w)
         return params, opt_state, metrics
 
     return finish
@@ -494,9 +507,10 @@ def make_train_step(cfg: ModelConfig, optimizer: opt_mod.Optimizer,
                     full, local, cfg, norm=batch["labels"].numel())
             del full
             loss = _sum_loss((w_l * losses).sum(), workers, split)
-            combined, new_resid = compress_combine_tree(
-                grads, comp_state["residual"], w_l, codec,
-                error_feedback=error_feedback, shards=shards)
+            with span("combine"):
+                combined, new_resid = compress_combine_tree(
+                    grads, comp_state["residual"], w_l, codec,
+                    error_feedback=error_feedback, shards=shards)
             del grads
             combined = _cross_rank(combined, workers, split, fsdp)
             params, opt_state, metrics = finish(
@@ -630,29 +644,31 @@ def make_manual_collective_train_step(cfg: ModelConfig,
             losses, grads = _per_machine_values_and_grads(full, cb, cfg,
                                                           norm=norm)
             # the chunk's stack goes before the next chunk's is made
-            if codec is None:
-                contrib = coded_allreduce(grads, w_c)
-                del grads
-            else:
-                q_t, s_t, new_r, shapes = _quantize_rows(
-                    grads, T.map(lambda x: x[t], r_xs), codec,
-                    error_feedback, shards)
-                del grads
-                if r_ys is None:      # the only chunk: no copy
-                    r_ys = T.map(lambda r: r.unsqueeze(0), new_r)
+            with span("combine"):
+                if codec is None:
+                    contrib = coded_allreduce(grads, w_c)
+                    del grads
                 else:
-                    T.map(lambda y, r: y[t].copy_(r), r_ys, new_r)
-                del new_r
-                contrib = _compressed_allreduce(q_t, s_t, w_c, codec,
-                                                shapes)
-                del q_t, s_t
-            # the first contribution seeds the float32 accumulator (no
-            # copy for float32 gradients)
-            g_acc = (T.map(torch.Tensor.float, contrib) if g_acc is None
-                     else T.map(torch.Tensor.add_, g_acc, contrib))
-            l_i = (w_c * losses).sum()
-            l_acc = l_i if l_acc is None else l_acc + l_i
-            del contrib
+                    q_t, s_t, new_r, shapes = _quantize_rows(
+                        grads, T.map(lambda x: x[t], r_xs), codec,
+                        error_feedback, shards)
+                    del grads
+                    if r_ys is None:      # the only chunk: no copy
+                        r_ys = T.map(lambda r: r.unsqueeze(0), new_r)
+                    else:
+                        T.map(lambda y, r: y[t].copy_(r), r_ys, new_r)
+                    del new_r
+                    contrib = _compressed_allreduce(q_t, s_t, w_c, codec,
+                                                    shapes)
+                    del q_t, s_t
+                # the first contribution seeds the float32 accumulator
+                # (no copy for float32 gradients)
+                g_acc = (T.map(torch.Tensor.float, contrib)
+                         if g_acc is None
+                         else T.map(torch.Tensor.add_, g_acc, contrib))
+                l_i = (w_c * losses).sum()
+                l_acc = l_i if l_acc is None else l_acc + l_i
+                del contrib
         del full
         split = n_shards > 1
         grads = _cross_rank(g_acc, workers, split, fsdp)

@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.spans import span
 from .layers import _dtype, apply_rope, init_linear, linear
 
 NEG_INF = -1e30
@@ -232,12 +233,14 @@ def _blockwise_backward(q, k, v, out, lse, d_out, causal, window,
 class _Blockwise(torch.autograd.Function):
     """Forward saves q, k, v, the output and the float32 log-sum-exp;
     backward recomputes each tile. No data-dependent control flow, so
-    it runs on meta tensors (``launch.step_analysis``)."""
+    it runs on meta tensors (``launch.step_analysis``). Each runs in an
+    ``attention`` span, the backward's marked as one."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, block_q, block_k):
-        out, lse = _blockwise_forward(q, k, v, causal, window, block_q,
-                                      block_k)
+        with span("attention"):
+            out, lse = _blockwise_forward(q, k, v, causal, window, block_q,
+                                          block_k)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.cfg = (causal, window, block_q, block_k)
         return out
@@ -245,8 +248,9 @@ class _Blockwise(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_out):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _blockwise_backward(q, k, v, out, lse, d_out,
-                                         *ctx.cfg)
+        with span("attention", backward=True):
+            dq, dk, dv = _blockwise_backward(q, k, v, out, lse, d_out,
+                                             *ctx.cfg)
         return dq, dk, dv, None, None, None, None
 
 

@@ -54,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import tensor_parallel as tp
+from repro_torch.spans import span
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -302,11 +303,15 @@ def _remat(body, x):
     (the reference's ``jax.checkpoint``). ``use_reentrant=False``: the
     per-row gradients take ``torch.autograd.grad``, which the re-entrant
     form does not support; the blocks draw no random numbers, so no RNG
-    state is kept."""
+    state is kept. The body runs in the ``block`` span, which the
+    recompute enters again."""
+    def spanned(h):
+        with span("block"):
+            return body(h)
     if _REMAT and torch.is_grad_enabled():
-        return checkpoint(body, x, use_reentrant=False,
+        return checkpoint(spanned, x, use_reentrant=False,
                           preserve_rng_state=False)
-    return body(x)
+    return spanned(x)
 
 
 def _backbone(params, x, cfg: ModelConfig, *, window, src=None):
@@ -411,29 +416,30 @@ def train_loss(params, batch, cfg: ModelConfig, *,
     >= 0; padded vocab entries are masked to -1e30 before the softmax;
     a vlm prefix's positions carry no loss. Sum (not mean), so per-block
     losses add like the paper's f = sum_i f_i. ``per_example`` returns
-    per-sequence sums (B,)."""
+    per-sequence sums (B,). The LM head and the loss's log-sum-exp run
+    in the ``lm_head`` span."""
     prefix = batch.get("prefix")
-    logits = _lm_head(params, forward_hidden(params, batch["tokens"], cfg,
-                                             prefix=prefix,
-                                             src=batch.get("src")),
-                      cfg, whole=False)
-    if prefix is not None:
-        logits = logits[:, prefix.shape[1]:]
-    labels = batch["labels"].long()
-    vocab = cfg.padded_vocab()
-    split = tp.splits(vocab)
-    if vocab != cfg.vocab_size:
-        lo = tp.local_range(vocab)[0] if split else 0
-        vmask = (torch.arange(logits.shape[-1], device=logits.device)
-                 + lo) < cfg.vocab_size
-        logits = torch.where(vmask, logits, -1e30)
-    if split:
-        ll = tp.vocab_parallel_nll(logits, labels.clamp(min=0), vocab)
-    else:
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1,
-                              labels.clamp(min=0)[..., None])[..., 0]
-        ll = picked - lse
+    x = forward_hidden(params, batch["tokens"], cfg, prefix=prefix,
+                       src=batch.get("src"))
+    with span("lm_head"):
+        logits = _lm_head(params, x, cfg, whole=False)
+        if prefix is not None:
+            logits = logits[:, prefix.shape[1]:]
+        labels = batch["labels"].long()
+        vocab = cfg.padded_vocab()
+        split = tp.splits(vocab)
+        if vocab != cfg.vocab_size:
+            lo = tp.local_range(vocab)[0] if split else 0
+            vmask = (torch.arange(logits.shape[-1], device=logits.device)
+                     + lo) < cfg.vocab_size
+            logits = torch.where(vmask, logits, -1e30)
+        if split:
+            ll = tp.vocab_parallel_nll(logits, labels.clamp(min=0), vocab)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = torch.gather(logits, -1,
+                                  labels.clamp(min=0)[..., None])[..., 0]
+            ll = picked - lse
     mask = (labels >= 0).float()
     loss = -(ll * mask)
     if per_example:

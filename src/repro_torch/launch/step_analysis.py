@@ -25,10 +25,15 @@ Both steps rematerialise each layer (``jax.checkpoint`` in the
 reference, ``torch.utils.checkpoint`` here), and both recompute all of a
 layer's forward but the MLP's down projection (XLA drops it; torch's
 non-reentrant checkpoint stops at the last tensor the backward needs).
-What differs is the attention backward: the port's flash-attention
-backward recomputes each tile's Q K^T, where the reference's scan saves
-its scores, so a train step counts one more Q K^T product a tile.
-Prefill counts the same FLOPs and dot bytes as the reference.
+What differs is attention. The port's flash-attention backward
+recomputes each tile's Q K^T, where the reference's scan saves its
+scores, so a train step counts one more Q K^T product a tile. And the
+port skips the tiles a mask wholly hides (forward, recompute and
+backward), where the reference's scan computes every key block, so at
+sequences longer than one block (512 positions) both its train and its
+prefill counts fall below the reference's by those tiles' products. Up
+to one block a sequence nothing is skipped, and prefill counts the same
+FLOPs and dot bytes as the reference.
 """
 
 from __future__ import annotations

@@ -8,12 +8,18 @@ reference's online softmax over (query block x key block) tiles: scores
 in float32 times ``Dh ** -0.5``; the causal mask ``k <= q`` and the
 sliding window ``k > q - window`` built per tile from absolute positions
 (the reference's ``_block_mask``), masked scores set to ``NEG_INF``
-(-1e30, not -inf, so a tile that is wholly masked adds exp(0) terms that
-the next real maximum scales to zero, as in the reference); a running
-maximum, sum and float32 accumulator; probabilities cast to the input
-dtype before the value product; ``acc / max(l, 1e-30)`` at the end. Its
-gradient is the flash-attention-2 backward (``_Blockwise``), so training
-memory is linear in the sequence too. ``attention_ref`` is the plain
+(-1e30, not -inf, so a row that a tile wholly masks adds exp(0) terms
+that the row's next real maximum scales to zero, as in the reference); a
+running maximum, sum and float32 accumulator; probabilities cast to the
+input dtype before the value product; ``acc / max(l, 1e-30)`` at the
+end. Its gradient is the flash-attention-2 backward (``_Blockwise``), so
+training memory is linear in the sequence too. Tiles the mask wholly
+hides are skipped, forward and backward (the reference computes them),
+and the results are the same: under a causal mask they come after each
+row's own key, so they would add exact zeros, and a window's come before
+each row's first real key, whose maximum scales what they would add to
+zero. ``tiles`` counts the tiles computed and skipped, a tile per call
+of the forward and of the backward. ``attention_ref`` is the plain
 version over the whole (Sq x Sk) scores, for tests and checks at lengths
 where those fit. Self-attention applies RoPE to q and k; cross-attention
 (``kv=``, the audio decoder over the encoder output) takes K and V from
@@ -45,6 +51,7 @@ from repro_torch.spans import span
 from .layers import _dtype, apply_rope, init_linear, linear
 
 NEG_INF = -1e30
+tiles = {"computed": 0, "skipped": 0}
 
 
 def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
@@ -124,12 +131,24 @@ def _tile_mask(q0: int, q1: int, k0: int, k1: int, causal: bool,
     return mask
 
 
+def _live_blocks(q0: int, q1: int, sk: int, block_k: int, causal: bool,
+                 window: Optional[int], device):
+    """(k0, k1, tile mask) of each key block, in order, whose tile with
+    the queries [q0, q1) the mask does not wholly hide; counts the tiles
+    computed and skipped in ``tiles``."""
+    for k0, k1 in _blocks(sk, block_k):
+        mask = _tile_mask(q0, q1, k0, k1, causal, window, device)
+        if mask is False:
+            tiles["skipped"] += 1
+            continue
+        tiles["computed"] += 1
+        yield k0, k1, mask
+
+
 def _tile_scores(qt, kt, scale: float, mask, G: int):
     """float32 scores (B*KVH, G*tq, tk) of one tile, masked to NEG_INF."""
     s = torch.bmm(qt, kt.transpose(1, 2)).mul_(scale)
-    if mask is False:
-        s.fill_(NEG_INF)
-    elif mask is not None:
+    if mask is not None:
         s.view(s.shape[0], G, -1, s.shape[2]).masked_fill_(~mask, NEG_INF)
     return s
 
@@ -167,10 +186,9 @@ def _blockwise_forward(q, k, v, causal, window, block_q, block_k):
         l = torch.zeros_like(m)
         acc = torch.zeros(BK, G * tq, Dh, dtype=torch.float32,
                           device=q.device)
-        for k0, k1 in _blocks(Sk, block_k):
-            s = _tile_scores(qt, kf[:, k0:k1], scale,
-                             _tile_mask(q0, q1, k0, k1, causal, window,
-                                        q.device), G)
+        for k0, k1, mask in _live_blocks(q0, q1, Sk, block_k, causal,
+                                         window, q.device):
+            s = _tile_scores(qt, kf[:, k0:k1], scale, mask, G)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = s.sub_(m_new).exp_()
             corr = torch.exp(m - m_new)
@@ -211,11 +229,10 @@ def _blockwise_backward(q, k, v, out, lse, d_out, causal, window,
         lse_t = lse[:, :, q0:q1].reshape(BK, G * tq, 1)
         delta_t = delta[:, :, q0:q1].reshape(BK, G * tq, 1)
         dq_t = torch.zeros_like(qt)
-        for k0, k1 in _blocks(Sk, block_k):
+        for k0, k1, mask in _live_blocks(q0, q1, Sk, block_k, causal,
+                                         window, q.device):
             kt, vt = kf[:, k0:k1], vf[:, k0:k1]
-            s = _tile_scores(qt, kt, scale,
-                             _tile_mask(q0, q1, k0, k1, causal, window,
-                                        q.device), G)
+            s = _tile_scores(qt, kt, scale, mask, G)
             p = s.sub_(lse_t).exp_()
             dv[:, k0:k1] += torch.bmm(p.to(q.dtype).float().transpose(1, 2),
                                       dot)
@@ -232,9 +249,10 @@ def _blockwise_backward(q, k, v, out, lse, d_out, causal, window,
 
 class _Blockwise(torch.autograd.Function):
     """Forward saves q, k, v, the output and the float32 log-sum-exp;
-    backward recomputes each tile. No data-dependent control flow, so
-    it runs on meta tensors (``launch.step_analysis``). Each runs in an
-    ``attention`` span, the backward's marked as one."""
+    backward recomputes each tile the forward computed. No
+    data-dependent control flow (the tiles skipped follow from positions
+    alone), so it runs on meta tensors (``launch.step_analysis``). Each
+    runs in an ``attention`` span, the backward's marked as one."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, block_q, block_k):
@@ -258,8 +276,8 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None, block_q: int = 512,
                         block_k: int = 512) -> torch.Tensor:
     """Online-softmax attention over (block_q x block_k) tiles, both
-    block axes looped, every key block computed (tiles a mask wholly
-    hides too, as the reference does). q: (B, Sq, H, Dh); k, v:
+    block axes looped, the tiles a mask wholly hides skipped (the
+    reference computes them; they add nothing). q: (B, Sq, H, Dh); k, v:
     (B, Sk, KVH, Dh), H % KVH == 0; query head h reads KV head
     h // (H // KVH), and K and V are not repeated over the group.
     Returns (B, Sq, H, Dh) in q.dtype.

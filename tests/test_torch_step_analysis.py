@@ -93,7 +93,9 @@ def test_train_flops_equal_the_reference_plus_the_flash_qk_recompute():
     port = sa.analyze(ct.make_train_step(cfg, opt, n_microbatches=2),
                       *spec.args)
     m, load, bs, S = spec.args[2]["tokens"].shape
-    # one (S x S) tile a sequence (S <= the 512 blocks), every layer
+    # one (S x S) tile a sequence (S <= the 512 blocks), every layer;
+    # a lone tile holds each row's own key, so none is wholly hidden and
+    # skipped, and the counts differ by the recompute alone
     qk = cfg.n_layers * 2 * (m * load * bs) * cfg.n_heads * S * S \
         * cfg.head_dim
     assert port["flops"] == ref["flops"] + qk

@@ -80,15 +80,16 @@ def reference_as_program(cell, seed, dev, mode, masks, cards=1):
                               traffic["replication"]).shape[0]
     tokens = inputs.tokens_for(cfgj, traffic, seed)
     batches = [tokens.batch(n * traffic["block_size"], s) for s in range(k)]
-    params0 = inputs.make_params(model, seed, dev)
+    fam = harness.family_of(cell)
+    params0 = inputs.make_params(fam, model, seed, dev)
     if mode == "no_decay":
         traffic = dict(traffic, optimizer=dict(traffic["optimizer"],
                                                weight_decay=0.0))
     out = ref_train.run(
-        model, traffic, seed, params0, batches, masks,
+        fam, model, traffic, seed, params0, batches, masks,
         q8=fp8 if mode == "fp8" else ref_train.ref_model._ident,
         fault=mode if mode in ref_train.FAULTS else None, ranks=cards)
-    change = harness.ref_change(model, seed, dev, out["params"])
+    change = harness.ref_change(fam, seed, dev, out["params"])
     rec = {"loss": out["losses"], "alpha": out["alphas"], "alive": masks,
            "first_grad": out["first_grad"], "change": change}
     del out, params0

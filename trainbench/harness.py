@@ -13,15 +13,21 @@ steps); the step is ``coded_train.make_train_step(dedup=True)`` or
 ``make_manual_collective_train_step`` under AdamW.
 
 Set-up builds one step, with its parameters (made from the seed by
-``inputs``) and AdamW state, and drives it through the traffic's
-``checked_steps`` first steps in the window's own loop: they warm up
-every shape and are what the reference follows. The window then runs
-whole steps from where they stopped until ``seconds`` have passed.
+``inputs`` in the layout of the configuration's reference family) and
+AdamW state, and drives it through the traffic's ``checked_steps`` first
+steps in the window's own loop: they warm up every shape and are what
+the reference follows. The window then runs whole steps from where they
+stopped until ``seconds`` have passed.
+With ``trace`` a few more steps run under ``torch.profiler``, and the
+program's counters that the cell's per-layer readers declare are read
+around them.
 """
 
 from __future__ import annotations
 
 import gc
+import importlib
+import importlib.util
 import json
 import math
 import os
@@ -32,12 +38,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from . import inputs
+from . import inputs, reference, span_trace
 from .reference import coding as ref_coding
 
 HERE = Path(__file__).resolve().parent
@@ -49,7 +56,8 @@ NUMBERS = ("loss_gap", "grad_gap", "change_gap", "alpha_gap")
 
 def load_cell(workload: str) -> dict:
     """The cell's entry, configuration, traffic, limits and per-layer
-    metrics, each found by name."""
+    metrics, each found by name; the configuration's reference family
+    (its ``"reference"``) must exist."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     wl = next((w for w in bench["workloads"] if w["name"] == workload), None)
     if wl is None:
@@ -57,11 +65,55 @@ def load_cell(workload: str) -> dict:
 
     def data(folder, name):
         return json.loads((HERE / folder / f"{name}.json").read_text())
+    config = data("configs", wl["config"])
+    if "reference" not in config:
+        raise SystemExit(f"configuration {wl['config']!r} names no "
+                         "reference family (its \"reference\" key)")
+    try:
+        reference.family(config["reference"])
+    except LookupError as e:
+        raise SystemExit(f"configuration {wl['config']!r}: {e}") from None
     per_layer = [m for m in bench["per_layer"]
                  if workload in m.get("workloads", [workload])]
-    return {"workload": wl, "config": data("configs", wl["config"]),
+    return {"workload": wl, "config": config,
             "traffic": data("traffic", wl["traffic"]),
             "limits": data("limits", workload), "per_layer": per_layer}
+
+
+def family_of(cell: dict) -> ModuleType:
+    """The cell's reference family."""
+    return reference.family(cell["config"]["reference"])
+
+
+def metric(name: str) -> ModuleType:
+    """The reader of per-layer metric ``name``, ``metrics/<name>.py``: its
+    ``read(ctx)`` and, where it reads the program's counters, its
+    ``COUNTERS`` ({key: "module:attribute"}, a dict of numbers in a module
+    of the program)."""
+    spec = importlib.util.spec_from_file_location(
+        f"trainbench_metric_{name}", HERE / "metrics" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def program_counters(per_layer: List[dict]) -> Dict[str, dict]:
+    """{key: the program's counter dict} that the readers of
+    ``per_layer`` declare."""
+    where: Dict[str, str] = {}
+    for m in per_layer:
+        for key, at in getattr(metric(m["name"]), "COUNTERS", {}).items():
+            if where.setdefault(key, at) != at:
+                raise SystemExit(f"counter {key!r} named twice: {where[key]} "
+                                 f"and {at}")
+    out = {}
+    for key, at in where.items():
+        module, _, attr = at.partition(":")
+        if module.split(".")[0] != "repro_torch" or not attr:
+            raise SystemExit(f"counter {key!r}: {at!r} is not "
+                             "'repro_torch.<module>:<attribute>'")
+        out[key] = getattr(importlib.import_module(module), attr)
+    return out
 
 
 class Spans:
@@ -99,10 +151,14 @@ def _program():
                 opt_mod=opt_mod)
 
 
+def _tuples(v):
+    return tuple(_tuples(x) for x in v) if isinstance(v, list) else v
+
+
 def model_config(P, model: dict):
-    kw = dict(model)
-    kw["attn_positions"] = tuple(kw.get("attn_positions", ()))
-    return P["ModelConfig"](**kw)
+    """The program's (frozen) ``ModelConfig`` of a configuration's model,
+    every list a tuple."""
+    return P["ModelConfig"](**{k: _tuples(v) for k, v in model.items()})
 
 
 def _sync(dev):
@@ -125,6 +181,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, dev, *,
     cfgj, traffic = cell["config"], cell["traffic"]
     model = cfgj["model"]
     cfg = model_config(P, model)
+    fam = family_of(cell)
     coded_train, sw = P["coded_train"], P["sw"]
     rank = 0 if workers is None else workers.rank
     distributed = workers is not None and workers.distributed
@@ -148,7 +205,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, dev, *,
     split["coding_s"] = time.time() - t0
 
     t0 = time.time()
-    params = inputs.nest(inputs.make_params(model, seed, dev))
+    params = inputs.nest(inputs.make_params(fam, model, seed, dev))
     o = traffic["optimizer"]
     optimizer = P["opt_mod"].get_optimizer(
         "adamw", o["lr"], b1=o["b1"], b2=o["b2"], eps=o["eps"],
@@ -229,7 +286,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, dev, *,
         fl = inputs.flat(state["params"])
         change = {}
         for path, x in fl.items():
-            start = inputs.make_leaf(path, x.shape, seed, dev)
+            start = inputs.make_leaf(fam, path, x.shape, seed, dev)
             change[path] = float(torch.linalg.vector_norm(x - start))
             del start
         split["records_s"] = time.time() - t0
@@ -266,7 +323,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, dev, *,
             "spans": {k: v for k, v in spans.times.items()},
         }
         if trace:
-            result["trace"] = _traced(one_step, s, traffic, dev, spans, rank)
+            result["trace"] = _traced(one_step, s, cell, dev, spans, rank)
             result["traffic_bytes_per_step"] = result["trace"].pop(
                 "traffic_bytes_per_step")
     finally:
@@ -282,15 +339,19 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, dev, *,
     return result
 
 
-def _traced(one_step, s0, traffic, dev, spans, rank):
+def _traced(one_step, s0, cell, dev, spans, rank):
     """The traffic's ``traced_steps`` further steps under torch.profiler:
     the chrome trace is written under ``TMPDIR``, reduced
-    (``trace.reduce``) and deleted."""
+    (``trace.reduce``), its device time put down to the spans that
+    launched it (``span_trace.by_span``) and deleted. ``counters``: the
+    change a step of each program counter the cell's readers declare."""
     from torch.profiler import ProfilerActivity, profile
     from . import trace as trace_mod
     P = _program()
     traffic0 = dict(P["pg"].traffic)
-    k = traffic.get("traced_steps", 3)
+    counters = program_counters(cell["per_layer"])
+    counters0 = {key: dict(c) for key, c in counters.items()}
+    k = cell["traffic"].get("traced_steps", 3)
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
@@ -311,10 +372,14 @@ def _traced(one_step, s0, traffic, dev, spans, rank):
     prof.export_chrome_trace(path)
     try:
         red = trace_mod.reduce(path)
+        red["by_span"] = span_trace.by_span(path)
     finally:
         os.remove(path)
     moved = {kk: (P["pg"].traffic[kk] - traffic0[kk]) / max(done, 1)
              for kk in traffic0}
+    red["counters"] = {
+        key: {kk: (v - counters0[key].get(kk, 0)) / max(done, 1)
+              for kk, v in c.items()} for key, c in counters.items()}
     red.update({"window_s": window, "steps": done,
                 "traffic_bytes_per_step": moved})
     return red
@@ -333,21 +398,24 @@ def check(cell: dict, seed: int, dev, checked: dict, first_grad: dict,
     tokens = inputs.tokens_for(cfgj, traffic, seed)
     k = len(checked["loss"])
     batches = [tokens.batch(gb_rows, s) for s in range(k)]
-    params0 = inputs.make_params(model, seed, dev)
-    ref = ref_train.run(model, traffic, seed, params0, batches,
+    fam = family_of(cell)
+    params0 = inputs.make_params(fam, model, seed, dev)
+    ref = ref_train.run(fam, model, traffic, seed, params0, batches,
                         checked["alive"])
     del params0
-    rc = ref_change(model, seed, dev, ref["params"])
+    rc = ref_change(fam, seed, dev, ref["params"])
     readings = compare_records(cell, checked, first_grad, change, ref, rc)
     del ref
     gc.collect()
     return readings
 
 
-def ref_change(model: dict, seed: int, dev, trained: dict) -> Dict[str, float]:
+def ref_change(fam: ModuleType, seed: int, dev,
+               trained: dict) -> Dict[str, float]:
+    """Each leaf's change from its start, as family ``fam`` made it."""
     out = {}
     for path, x in trained.items():
-        start = inputs.make_leaf(path, x.shape, seed, dev)
+        start = inputs.make_leaf(fam, path, x.shape, seed, dev)
         out[path] = float(torch.linalg.vector_norm(x - start))
     return out
 

@@ -9,22 +9,21 @@ draw of step t comes from ``numpy.random.default_rng((seed, t))``: every
 seed gives the same sizes, and any whole seed works. The distribution is
 that of the program's ``data.pipeline.SyntheticLM``, drawn here.
 
-Parameters: one leaf at a time in the layout of the reference's
-``param_shapes``, made on the device in float32 by a ``torch.Generator``
-seeded from (seed, path), so that any leaf can be made again alone, each
-as the reference's ``init_scale`` and ``init_uniform`` say (a constant
-leaf is 1).
+Parameters: one leaf at a time in the layout of the reference family's
+``param_shapes`` (``reference.family``), made on the device in float32
+by a ``torch.Generator`` seeded from (seed, path), so that any leaf can
+be made again alone, each as the family's ``init_scale`` and
+``init_uniform`` say (a constant leaf is 1).
 """
 
 from __future__ import annotations
 
 import zlib
+from types import ModuleType
 from typing import Dict
 
 import numpy as np
 import torch
-
-from .reference import model as ref_model
 
 
 class Tokens:
@@ -58,23 +57,26 @@ def leaf_seed(seed: int, path: str) -> int:
     return (int(seed) * 1_000_003 + zlib.crc32(path.encode())) % (1 << 63)
 
 
-def make_leaf(path: str, shape, seed: int, device) -> torch.Tensor:
+def make_leaf(fam: ModuleType, path: str, shape, seed: int,
+              device) -> torch.Tensor:
+    """Leaf ``path`` of reference family ``fam``."""
     gen = torch.Generator(device=device).manual_seed(leaf_seed(seed, path))
-    std = ref_model.init_scale(path, shape)
+    std = fam.init_scale(path, shape)
     if std is not None:
         return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                            device=device).mul_(std)
-    drawn = ref_model.init_uniform(path, torch.rand(
+    drawn = fam.init_uniform(path, torch.rand(
         tuple(shape), generator=gen, dtype=torch.float32, device=device))
     if drawn is not None:
         return drawn
     return torch.ones(tuple(shape), dtype=torch.float32, device=device)
 
 
-def make_params(model: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """{path: float32 leaf} on ``device``."""
-    return {path: make_leaf(path, shape, seed, device)
-            for path, shape in ref_model.param_shapes(model).items()}
+def make_params(fam: ModuleType, model: dict, seed: int,
+                device) -> Dict[str, torch.Tensor]:
+    """{path: float32 leaf} of reference family ``fam`` on ``device``."""
+    return {path: make_leaf(fam, path, shape, seed, device)
+            for path, shape in fam.param_shapes(model).items()}
 
 
 def nest(flat: Dict[str, object]) -> dict:

@@ -8,8 +8,7 @@ machines (m / (ranks x chunk) chunks); another count returns nothing."""
 
 import math
 
-from trainbench import peaks, trace
-from trainbench.reference import model as ref_model
+from trainbench import peaks, reference, trace
 
 
 def read(ctx):
@@ -20,7 +19,8 @@ def read(ctx):
     got = trace.matching(tr["kernels"], "combine_vec", "combine_scalar")
     if not got["launches"] or got["seconds"] <= 0:
         return None
-    shapes = ref_model.param_shapes(ctx["model"])
+    fam = reference.family(ctx["cell"]["config"]["reference"])
+    shapes = fam.param_shapes(ctx["model"])
     rows = t.get("stream_chunk") or t["machines"] // ctx["cards"]
     chunks = t["machines"] // (ctx["cards"] * rows)
     if got["launches"] != chunks * len(shapes) * tr["steps"]:

@@ -1,10 +1,10 @@
 """Share of the cards' bfloat16 peak in model FLOPs: the FLOPs of the
-step's distinct tokens (``trainbench.flops``) over the window's wall
-time a step, times the peak (``trainbench.peaks``), times the cards. The
-peak is the 700 W data sheet's; the result carries the card's power
-limit."""
+step's distinct tokens (the reference family's ``step_flops``) over the
+window's wall time a step, times the peak (``trainbench.peaks``), times
+the cards. The peak is the 700 W data sheet's; the result carries the
+card's power limit."""
 
-from trainbench import flops, peaks
+from trainbench import peaks, reference
 from trainbench.reference import coding
 
 
@@ -16,8 +16,7 @@ def read(ctx):
     tr = ctx["traffic"]
     n = coding.assignment(tr["scheme"], tr["machines"],
                           tr["replication"]).shape[0]
-    chunk = ctx["cell"]["config"].get("as_run", {}).get("chunk_size", 256)
-    f = flops.step_flops(ctx["model"], tr["seq_len"], n * tr["block_size"],
-                         chunk=chunk)
+    fam = reference.family(ctx["cell"]["config"]["reference"])
+    f = fam.step_flops(ctx["model"], tr["seq_len"], n * tr["block_size"])
     per_step = lead["window_s"] / steps
     return 100.0 * f / (per_step * peaks.BF16_FLOPS * ctx["cards"])

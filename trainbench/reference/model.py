@@ -1,39 +1,44 @@
-"""Plain float32 PyTorch forward passes of the benchmark's model
-families, with no kernels, no cache and no batching: one sequence at a
-time, each layer under ``torch.utils.checkpoint`` so that a 4,096-token
-sequence fits beside the optimizer state.
+"""Pieces the reference families share (``dense``, ``hybrid``): plain
+float32 PyTorch, no kernels, no cache, no batching, one sequence at a
+time.
 
-- ``dense``: a pre-norm decoder (Llama / Granite block): RMSNorm; GQA
-  self-attention with half-split rotary embeddings and a causal softmax
-  over the whole score matrix, query head h reading key/value head
-  h // (H / KVH); a SwiGLU MLP; a final RMSNorm; logits against the tied
-  embedding (or an untied head).
-- ``hybrid``: Zamba2 (arXiv:2411.15242) as a stack of Mamba2 mixers
-  (arXiv:2405.21060) with one shared attention block applied after the
-  layers listed in ``attn_positions``. The mixer: in-projection to x, z
-  (expand x d_model each) and B, C (one group, d_state each) and dt (one
-  a head); a causal depthwise convolution of x and SiLU; dt = softplus(dt
-  + dt_bias), A = -exp(A_log); the selective state space recurrence
-  h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t^T, y_t = C_t h_t + D x_t,
-  computed by the paper's chunked dual form (quadratic within a chunk,
-  a recurrence over chunk states); y * SiLU(z); out-projection.
+Parameters are a flat dict {"/"-joined path: tensor}: linear weights
+(d_in, d_out) applied as x @ w, layers stacked on a leading axis. ``q8``
+is applied to both operands of every linear and to the residual stream
+after the embedding and after each block (the identity by default; the
+control passes an fp8 rounding). Every product is float32; the caller
+turns TF32 off.
 
-Parameters are a flat dict {"/"-joined path: tensor} in the layout
-``param_shapes`` gives: linear weights (d_in, d_out) applied as x @ w,
-layers stacked on a leading axis. ``q8`` is applied to both operands of
-every linear and to the residual stream after the embedding and after
-each block (the identity by default; the control passes an fp8
-rounding). Every product is float32; the caller turns TF32 off.
+The pieces: RMSNorm; GQA self-attention with half-split rotary
+embeddings and a causal softmax over the whole score matrix, query head
+h reading key/value head h // (H / KVH); a SwiGLU MLP; the pre-norm
+block of the two; Mamba2's mixer (arXiv:2405.21060): in-projection to x,
+z (expand x d_model each) and B, C (one group, d_state each) and dt (one
+a head); a causal depthwise convolution of x and SiLU; dt = softplus(dt +
+dt_bias), A = -exp(A_log); the selective state space recurrence h_t =
+exp(dt_t A) h_{t-1} + dt_t B_t x_t^T, y_t = C_t h_t + D x_t, computed by
+the paper's chunked dual form (quadratic within a chunk, a recurrence
+over chunk states); y * SiLU(z); out-projection. And the final norm,
+logits against the tied embedding (or an untied head) and the loss.
+
+Model FLOPs (a family's ``step_flops``) count the operations a step's
+distinct tokens need, forward and backward, whatever the program does to
+compute them: matmuls 6 x (parameters in matmuls) x tokens, the
+embedding lookup no matmul, the LM head over the real vocabulary, not
+its padding; causal attention forward 2 x S^2 x H x Dh a sequence and
+layer (Q K^T and P V over the visible half of the score matrix), times 3
+for the backward. Recomputation (remat, a flash backward's second Q K^T,
+masked tiles) and the copies the replicated path computes are not
+counted.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 HEAD_P = 64          # Mamba2 head width (mamba_headdim)
@@ -48,83 +53,45 @@ def padded_vocab(vocab: int, multiple: int = 256) -> int:
     return ((vocab + multiple - 1) // multiple) * multiple
 
 
-def param_shapes(cfg: dict) -> Dict[str, tuple]:
-    """Path -> shape for a family (``cfg`` is a configuration's "model"
-    object)."""
-    D, V, L = cfg["d_model"], padded_vocab(cfg["vocab_size"]), cfg["n_layers"]
-    H, KVH = cfg["n_heads"], cfg["n_kv_heads"]
-    Dh = D // H
+# ---------------------------------------------------------------------------
+# Layout and initialisation
+# ---------------------------------------------------------------------------
+
+
+def embedding_shapes(cfg: dict) -> Dict[str, tuple]:
+    """The embedding table (padded vocabulary), the final norm and, where
+    the embedding is not tied, the LM head."""
+    D, V = cfg["d_model"], padded_vocab(cfg["vocab_size"])
     shapes = {"embed/table": (V, D), "final_norm/scale": (D,)}
     if not cfg.get("tie_embeddings", False):
         shapes["lm_head/w"] = (D, V)
-
-    def attn_block(pre, lead):
-        F_ = cfg["d_ff"]
-        return {f"{pre}/ln_attn/scale": lead + (D,),
-                f"{pre}/ln_mlp/scale": lead + (D,),
-                f"{pre}/attn/wq/w": lead + (D, H * Dh),
-                f"{pre}/attn/wk/w": lead + (D, KVH * Dh),
-                f"{pre}/attn/wv/w": lead + (D, KVH * Dh),
-                f"{pre}/attn/wo/w": lead + (H * Dh, D),
-                f"{pre}/mlp/wi_gate/w": lead + (D, F_),
-                f"{pre}/mlp/wi_up/w": lead + (D, F_),
-                f"{pre}/mlp/wo/w": lead + (F_, D)}
-
-    arch = cfg["arch_type"]
-    if arch == "dense":
-        shapes.update(attn_block("blocks", (L,)))
-    elif arch == "hybrid":
-        N, E, K = cfg["ssm_state"], cfg.get("ssm_expand", 2), cfg.get(
-            "ssm_conv", 4)
-        di = E * D
-        nh = di // HEAD_P
-        shapes.update({
-            "blocks/ln/scale": (L, D),
-            "blocks/ssm/xz_proj/w": (L, D, 2 * di),
-            "blocks/ssm/bcdt_proj/w": (L, D, 2 * N + nh),
-            "blocks/ssm/conv_w": (L, K, di),
-            "blocks/ssm/A_log": (L, nh),
-            "blocks/ssm/dt_bias": (L, nh),
-            "blocks/ssm/D": (L, nh),
-            "blocks/ssm/out_proj/w": (L, di, D)})
-        shapes.update(attn_block("shared_attn", ()))
-    else:
-        raise NotImplementedError(f"no plain reference for {arch!r}")
     return shapes
 
 
-def init_scale(path: str, shape: tuple) -> Optional[float]:
-    """How a leaf starts: None for a constant (norm scales and D are 1)
-    or a draw of ``init_uniform`` (A_log, dt_bias), else the standard
-    deviation of its normal draw: 0.02 for the embedding, K**-0.5 for the
-    convolution, d_in**-0.5 for a linear weight."""
-    last = path.rsplit("/", 1)[-1]
-    if last in ("scale", "D", "A_log", "dt_bias"):
+def attn_block_shapes(cfg: dict, pre: str, lead: tuple) -> Dict[str, tuple]:
+    """One attention + SwiGLU block under ``pre``, ``lead`` stacked."""
+    D, H, KVH, F_ = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"], \
+        cfg["d_ff"]
+    Dh = D // H
+    return {f"{pre}/ln_attn/scale": lead + (D,),
+            f"{pre}/ln_mlp/scale": lead + (D,),
+            f"{pre}/attn/wq/w": lead + (D, H * Dh),
+            f"{pre}/attn/wk/w": lead + (D, KVH * Dh),
+            f"{pre}/attn/wv/w": lead + (D, KVH * Dh),
+            f"{pre}/attn/wo/w": lead + (H * Dh, D),
+            f"{pre}/mlp/wi_gate/w": lead + (D, F_),
+            f"{pre}/mlp/wi_up/w": lead + (D, F_),
+            f"{pre}/mlp/wo/w": lead + (F_, D)}
+
+
+def linear_init_scale(path: str, shape: tuple) -> Optional[float]:
+    """None for a norm scale (1), 0.02 for the embedding, d_in**-0.5 for
+    a linear weight (and K**-0.5 for a convolution's (K, C) taps)."""
+    if path.rsplit("/", 1)[-1] == "scale":
         return None
     if path == "embed/table":
         return 0.02
     return shape[-2] ** -0.5
-
-
-# Mamba2's initialisation of a head's decay and step (arXiv:2405.21060,
-# the reference implementation's defaults): A ~ U(1, 16); dt log-uniform
-# in [dt_min, dt_max], floored, and dt_bias its inverse softplus.
-A_RANGE = (1.0, 16.0)
-DT_RANGE = (1e-3, 0.1)
-DT_FLOOR = 1e-4
-
-
-def init_uniform(path: str, u: torch.Tensor) -> Optional[torch.Tensor]:
-    """The leaf from a U(0, 1) draw ``u`` of its shape, for A_log and
-    dt_bias; None for any other leaf."""
-    last = path.rsplit("/", 1)[-1]
-    if last == "A_log":
-        return torch.log(A_RANGE[0] + (A_RANGE[1] - A_RANGE[0]) * u)
-    if last == "dt_bias":
-        lo, hi = math.log(DT_RANGE[0]), math.log(DT_RANGE[1])
-        dt = torch.exp(lo + (hi - lo) * u).clamp(min=DT_FLOOR)
-        return dt + torch.log(-torch.expm1(-dt))
-    return None
 
 
 # ---------------------------------------------------------------------------
@@ -240,39 +207,11 @@ def mamba2(p, i, x, cfg, q8):
     return q8(y) @ q8(p["blocks/ssm/out_proj/w"][i])
 
 
-# ---------------------------------------------------------------------------
-# One sequence's summed loss
-# ---------------------------------------------------------------------------
-
-
-def _segments(cfg):
-    bounds = [0] + sorted(cfg.get("attn_positions", [])) + [cfg["n_layers"]]
-    return [(bounds[s], bounds[s + 1], s < len(bounds) - 2)
-            for s in range(len(bounds) - 1)]
-
-
-def sequence_loss(p, tokens, labels, cfg: dict,
-                  q8: Callable = _ident) -> torch.Tensor:
-    """Summed next-token cross entropy of one sequence (tokens, labels:
-    (S,) int64) over the real vocabulary; padding rows of the table
-    never win. float32 throughout."""
-    eps = cfg["norm_eps"]
-    x = q8(p["embed/table"][tokens])
-    if cfg["arch_type"] == "dense":
-        for i in range(cfg["n_layers"]):
-            x = q8(checkpoint(attn_block, _below(p, "blocks", i), x, cfg, q8,
-                              use_reentrant=False))
-    else:
-        shared = _below(p, "shared_attn")
-        for lo, hi, then_attn in _segments(cfg):
-            for i in range(lo, hi):
-                x = q8(checkpoint(lambda h, i=i: h + mamba2(
-                    p, i, rmsnorm(h, p["blocks/ln/scale"][i], eps), cfg, q8),
-                    x, use_reentrant=False))
-            if then_attn:
-                x = q8(checkpoint(attn_block, shared, x, cfg, q8,
-                                  use_reentrant=False))
-    x = rmsnorm(x, p["final_norm/scale"], eps)
+def head_loss(p, x, labels, cfg, q8) -> torch.Tensor:
+    """The final norm, the logits against the head and the summed
+    next-token cross entropy over the real vocabulary; padding rows of
+    the table never win."""
+    x = rmsnorm(x, p["final_norm/scale"], cfg["norm_eps"])
     head = (p["embed/table"].T if cfg.get("tie_embeddings", False)
             else p["lm_head/w"])
     logits = q8(x) @ q8(head)
@@ -280,3 +219,28 @@ def sequence_loss(p, tokens, labels, cfg: dict,
     logits = logits[:, :V]
     return F.cross_entropy(logits, labels, reduction="sum")
 
+
+# ---------------------------------------------------------------------------
+# FLOPs of the shared pieces
+# ---------------------------------------------------------------------------
+
+
+def attn_block_params(cfg: dict) -> int:
+    """Parameters in the matmuls of one attention + SwiGLU block."""
+    D, H, KVH, F_ = cfg["d_model"], cfg["n_heads"], cfg["n_kv_heads"], \
+        cfg["d_ff"]
+    Dh = D // H
+    return D * H * Dh + 2 * D * KVH * Dh + H * Dh * D + 3 * D * F_
+
+
+def head_params(cfg: dict) -> int:
+    """Parameters in the LM head's matmul, over the real vocabulary."""
+    return cfg["d_model"] * cfg["vocab_size"]
+
+
+def attention_flops(cfg: dict, seq_len: int, layers: int,
+                    sequences: int) -> float:
+    """Causal attention's score and value products, forward and
+    backward, of ``layers`` layers over ``sequences`` sequences."""
+    S, D, H = seq_len, cfg["d_model"], cfg["n_heads"]
+    return 3.0 * 2.0 * S * S * H * (D // H) * layers * sequences

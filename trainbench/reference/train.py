@@ -12,8 +12,9 @@ each of the d machines that hold it). Its gradient is the combine
 sum_j w_j g_j over the machines, whichever way a program computes it.
 AdamW (Loshchilov & Hutter) then moves the float32 parameters.
 
-``run`` computes t = 1..steps sequence by sequence and returns what the
-check compares: each step's loss, the norm of each leaf's first gradient,
+``run`` computes t = 1..steps sequence by sequence, each sequence's loss
+by the reference family's ``sequence_loss``, and returns what the check
+compares: each step's loss, the norm of each leaf's first gradient,
 each leaf's change over the steps and each step's alpha. ``fault``
 plants one fault for the control (``"half_batch"``: the second half of
 the blocks left out and the loss normalised over the rest;
@@ -24,6 +25,7 @@ doubled where the decoder produces it).
 
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -55,13 +57,16 @@ def alphas(traffic: dict, seed: int, masks) -> List[np.ndarray]:
     return [coding.optimal_alpha(A, m) * scale for m in masks]
 
 
-def run(cfg: dict, traffic: dict, seed: int, params0: Dict[str, torch.Tensor],
+def run(fam: ModuleType, cfg: dict, traffic: dict, seed: int,
+        params0: Dict[str, torch.Tensor],
         batches: List[Dict[str, np.ndarray]], masks, *,
         q8: Callable = ref_model._ident, fault: Optional[str] = None,
         ranks: int = 1) -> dict:
-    """``params0``: the starting float32 leaves (consumed: trained in
-    place); ``batches``: each step's global batch {"tokens", "labels"}
-    (gb, S); ``masks``: each step's (m,) alive mask."""
+    """``fam``: the reference family (``reference.family``); ``cfg``:
+    the configuration's model; ``params0``: the starting float32 leaves
+    (consumed: trained in place); ``batches``: each step's global batch
+    {"tokens", "labels"} (gb, S); ``masks``: each step's (m,) alive
+    mask."""
     opt = traffic["optimizer"]
     m_, d = traffic["machines"], traffic["replication"]
     A = coding.assignment(traffic["scheme"], m_, d)
@@ -96,8 +101,7 @@ def run(cfg: dict, traffic: dict, seed: int, params0: Dict[str, torch.Tensor],
                 row = rho[i] * bs + r
                 tok = torch.from_numpy(batch["tokens"][row].astype(np.int64))
                 lab = torch.from_numpy(batch["labels"][row].astype(np.int64))
-                li = ref_model.sequence_loss(p, tok.to(dev), lab.to(dev), cfg,
-                                             q8)
+                li = fam.sequence_loss(p, tok.to(dev), lab.to(dev), cfg, q8)
                 (li * (a[i] / norm)).backward()
                 loss += float(li.detach()) * a[i] / norm
         losses.append(loss)

@@ -10,8 +10,13 @@ localhost port, NCCL's shared-memory transport off so that nothing is
 written to /dev/shm) and prints one line from their results. With
 ``--trace 0`` the line holds the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics, each read by its reader in
-``metrics/<name>.py``. The numbers the check compares, each beside its
-limit, are the result's last key and the last lines on standard error.
+``metrics/<name>.py`` from the ranks' spans, the program counters the
+readers declare and the profiler's trace of a few steps after the window
+(by kernel and by span); the breakdown gives the top device operations,
+the longest idle gaps and the device time by span, and ``spans`` each
+rank's attribution condensed (``span_trace.summary``). The numbers the check
+compares, each beside its limit, are the result's last key and the last
+lines on standard error.
 
 Builds and kernel caches stay inside the checkout: the program's nvcc
 libraries in ``src/repro_torch/kernels/_build/``, and
@@ -25,7 +30,6 @@ import time
 T_START = time.time()
 
 import argparse  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import socket  # noqa: E402
@@ -108,7 +112,8 @@ def _free_port() -> int:
 
 
 def _launch(args, chips) -> list:
-    """Start one process a card and wait for all of them."""
+    """Start one process a card, each running its rank, and wait for all
+    of them."""
     out_dir = tempfile.mkdtemp(prefix="trainbench-ranks-")
     port = _free_port()
     procs = []
@@ -148,11 +153,8 @@ def _launch(args, chips) -> list:
 
 
 def _reader(name):
-    spec = importlib.util.spec_from_file_location(
-        f"trainbench_metric_{name}", HERE / "metrics" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    from . import harness
+    return harness.metric(name).read
 
 
 def assemble(cell, ranks, trace: bool) -> dict:
@@ -190,10 +192,13 @@ def assemble(cell, ranks, trace: bool) -> dict:
         device["busy_s"] = statistics.mean(r["trace"]["busy_s"]
                                            for r in ranks)
         device["window_s"] = lead["trace"]["window_s"]
-        from . import trace as trace_mod
+        from . import span_trace, trace as trace_mod
         out["breakdown"] = {
             "device_ops": trace_mod.top_ops(lead["trace"]["kernels"]),
             "idle_gaps": lead["trace"]["idle_gaps"]}
+        out["breakdown"].update(span_trace.breakdown(lead["trace"]))
+        out["spans"] = [got for got in map(span_trace.summary, ranks)
+                        if got is not None]
     out["setup_split"] = lead["setup_split"]
     out["window"] = {"steps": steps, "seconds": lead["window_s"],
                      "check_s": lead.get("check_s")}
@@ -231,6 +236,12 @@ def main(argv=None) -> int:
         return 1
     out = assemble(cell, ranks, bool(args.trace))
     print(json.dumps(out.get("setup_split")), file=sys.stderr)
+    for got in out.get("spans", ()):
+        print(f"rank {got['rank']}: unattributed share "
+              f"{got['unattributed_share']}, partition gap "
+              f"{got['partition_gap']}, float32 products in attention + "
+              f"lm_head {got['f32_in_attention_lm_head']}, attribution "
+              f"{got['by_span_s']:.1f} s", file=sys.stderr)
     for k, v in out["checks"].items():
         print(f"{k} {v['value']!r} limit {v['limit']!r}", file=sys.stderr)
     print(json.dumps(out))

@@ -28,12 +28,16 @@ forward. ``by_span`` reports, per span name (``rt/<name>`` or
 innermost span it is; these and ``unattributed`` sum to the total) and
 launches, the top unattributed operations, and the ten longest idle gaps
 of the device named by the span the thread that launched the next
-operation was in when the gap began.
+operation was in when the gap began. ``summary`` condenses one rank's
+attribution for the result line: device ms a step by span and phase, the
+partition's check, and the float32 products' share in attention and the
+LM head.
 """
 
 from __future__ import annotations
 
 import json
+import time
 from collections import Counter, defaultdict
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -46,6 +50,7 @@ NODE = "autograd::engine::evaluate_function:"
 PHASES = ("forward", "recompute", "backward")
 UNATTRIBUTED = "unattributed"
 OUTSIDE = "outside_spans"
+F32 = ("f32f32", "simt_sgemm")      # names of cuBLAS's float32 products
 
 
 class _Interval:
@@ -274,8 +279,14 @@ def summarise(records, tl: _Timeline) -> Dict[str, object]:
 
 def by_span(path: str) -> Dict[str, object]:
     """Device seconds of the trace at ``path`` by span (see the module's
-    docstring)."""
-    return summarise(*attribute(load_events(path)))
+    docstring), with ``f32_products`` (``matching`` the float32 products)
+    and the ``seconds`` the attribution took."""
+    t0 = time.time()
+    records, tl = attribute(load_events(path))
+    got = summarise(records, tl)
+    got["f32_products"] = matching(records, *F32)
+    got["seconds"] = time.time() - t0
+    return got
 
 
 def matching(records, *needles) -> Dict[str, float]:
@@ -317,3 +328,37 @@ def breakdown(trace: dict) -> Dict[str, object]:
     ms[UNATTRIBUTED] = got["unattributed"]["seconds"] * per
     return {"device_by_span": dict(sorted(ms.items(), key=lambda kv: -kv[1])),
             "idle_gaps_by_span": got["idle_gaps"]}
+
+
+def summary(rank: dict) -> Optional[Dict[str, object]]:
+    """One rank's ``by_span`` condensed, per step: device ms by span and
+    phase, the partition's check (the spans' self seconds and the
+    unattributed seconds against the total), the unattributed share and
+    its top operations, the float32 products' ms by span and their share
+    in ``attention`` and ``lm_head``, and the seconds the attribution
+    took; None where the rank's trace holds no ``by_span``."""
+    tr = rank.get("trace") or {}
+    got, steps = tr.get("by_span"), tr.get("steps")
+    if not got or not steps:
+        return None
+    total = got["total_s"]
+    parts = sum(v["self_s"] for v in got["spans"].values())
+    lost = got["unattributed"]
+    f32 = got["f32_products"]
+    per = 1e3 / steps
+    return {
+        "rank": rank["rank"], "steps": steps, "device_s": total,
+        "partition_gap": (abs(parts + lost["seconds"] - total) / total
+                          if total else None),
+        "unattributed_share": lost["seconds"] / total if total else None,
+        "unattributed_top": lost["top"],
+        "f32_products_ms": {k: v * per for k, v in f32.items()},
+        "f32_in_attention_lm_head": ((f32.get("rt/attention", 0.0)
+                                      + f32.get("rt/lm_head", 0.0))
+                                     / f32["total"] if f32.get("total")
+                                     else None),
+        "ms_by_span": {n: {k: v[k] * per for k in
+                           ("forward_s", "recompute_s", "backward_s",
+                            "self_s")} | {"launches": v["launches"]}
+                       for n, v in sorted(got["spans"].items())},
+        "by_span_s": got["seconds"]}

@@ -9,8 +9,7 @@ import shutil
 import pytest
 import torch
 
-from trainbench import harness, inputs
-from trainbench.reference import model as ref_model
+from trainbench import harness, inputs, reference
 
 ROOT = harness.ROOT
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -47,7 +46,7 @@ def test_cell_files(wl):
     assert all(k in departed for k in changed - set(conf["reduced"]))
     P = harness._program()
     harness.model_config(P, cell["config"]["model"])
-    assert ref_model.param_shapes(cell["config"]["model"])
+    assert harness.family_of(cell).param_shapes(cell["config"]["model"])
 
 
 def test_reference_layout_is_the_programs():
@@ -56,8 +55,10 @@ def test_reference_layout_is_the_programs():
     P = harness._program()
     from repro_torch.models.convert import param_shapes
     for c in BENCH["configs"]:
-        model = json.loads((ROOT / c["file"]).read_text())["model"]
-        mine = {k: tuple(v) for k, v in ref_model.param_shapes(model).items()}
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        model = cfg["model"]
+        fam = reference.family(cfg["reference"])
+        mine = {k: tuple(v) for k, v in fam.param_shapes(model).items()}
         theirs = {k: tuple(v) for k, v in param_shapes(
             harness.model_config(P, model)).items()}
         assert mine == theirs
@@ -72,16 +73,20 @@ def test_mamba2_initialisation():
     """A_log and dt_bias are drawn as Mamba2 draws them, from the seed:
     A in [1, 16], softplus(dt_bias) in [1e-3, 0.1]; D and norm scales
     are 1."""
-    a = inputs.make_leaf("blocks/ssm/A_log", (3, 64), 2 ** 33 + 1, "cpu")
-    dt = inputs.make_leaf("blocks/ssm/dt_bias", (3, 64), 2 ** 33 + 1, "cpu")
+    hybrid = reference.family("hybrid")
+    a = inputs.make_leaf(hybrid, "blocks/ssm/A_log", (3, 64), 2 ** 33 + 1,
+                         "cpu")
+    dt = inputs.make_leaf(hybrid, "blocks/ssm/dt_bias", (3, 64),
+                          2 ** 33 + 1, "cpu")
     A, step = a.exp(), torch.nn.functional.softplus(dt)
     assert 1.0 <= A.min() and A.max() <= 16.0 and A.std() > 2.0
     assert 0.999e-3 <= step.min() and step.max() <= 0.1001
     assert step.log().std() > 0.5
-    again = inputs.make_leaf("blocks/ssm/A_log", (3, 64), 2 ** 33 + 1, "cpu")
+    again = inputs.make_leaf(hybrid, "blocks/ssm/A_log", (3, 64),
+                             2 ** 33 + 1, "cpu")
     assert torch.equal(a, again)
     for path in ("blocks/ssm/D", "blocks/ln/scale"):
-        assert torch.equal(inputs.make_leaf(path, (3, 64), 5, "cpu"),
+        assert torch.equal(inputs.make_leaf(hybrid, path, (3, 64), 5, "cpu"),
                            torch.ones(3, 64))
 
 

@@ -212,9 +212,9 @@ def test_readers_take_the_highest_rank(chrome, name, ms):
 
 
 @pytest.mark.parametrize("name", ["attention_ms", "lm_head_ms",
-                                  "optimizer_ms"])
+                                  "optimizer_ms", "attention_tile_skip"])
 def test_readers_find_nothing_without_spans(name):
-    # a program with no spans, or a trace reduced without them
+    # a program with no spans or counters, or a trace reduced without them
     ctx = {"ranks": [{"rank": 0, "trace": {"steps": 3, "busy_s": 1.0}},
                      {"rank": 1}]}
     assert run._reader(name)(ctx) is None
@@ -232,21 +232,92 @@ def test_breakdown_keys(chrome):
     assert span_trace.breakdown({"steps": 2}) == {}
 
 
-def test_span_run_reads_the_harness_trace(monkeypatch):
-    """``span_run`` stores ``by_span`` beside ``trace.reduce``'s keys for
-    the trace of the harness's own traced steps (on the CPU the trace has
-    host events alone, so nothing is put down to a span)."""
+def test_summary_of_a_rank(chrome):
+    """``by_span`` carries the float32 products and its own seconds, and
+    ``summary`` condenses them with the partition's check, per step."""
+    got = span_trace.by_span(chrome)
+    assert got["f32_products"] == span_trace.matching(
+        span_trace.attribute(span_trace.load_events(chrome))[0], *F32)
+    assert got["seconds"] >= 0
+    s = span_trace.summary({"rank": 1, "trace": {"steps": 2,
+                                                 "by_span": got}})
+    assert s["rank"] == 1 and s["steps"] == 2
+    assert s["device_s"] == _us(310)
+    assert s["partition_gap"] == pytest.approx(0.0, abs=1e-12)
+    assert s["unattributed_share"] == pytest.approx(10 / 310)
+    assert s["unattributed_top"] == [["orphan_kernel", _us(10)]]
+    assert s["f32_products_ms"]["total"] == pytest.approx(110e-3 / 2)
+    assert s["f32_in_attention_lm_head"] == pytest.approx(1.0)
+    f, rc, b, own, n = EXPECTED["rt/attention"]
+    assert s["ms_by_span"]["rt/attention"] == {
+        "forward_s": pytest.approx(f * 1e-3 / 2),
+        "recompute_s": pytest.approx(rc * 1e-3 / 2),
+        "backward_s": pytest.approx(b * 1e-3 / 2),
+        "self_s": pytest.approx(own * 1e-3 / 2), "launches": n}
+    assert set(s["ms_by_span"]) == set(EXPECTED)
+    assert span_trace.summary({"rank": 0, "trace": {"steps": 2}}) is None
+
+
+def test_tile_skip_share_over_the_ranks():
+    """Skipped over computed and skipped tiles, summed over the ranks
+    (dedup-seq4k reads 28 of 64 a call, manual-4chip 1 of 4)."""
+    read = run._reader("attention_tile_skip")
+
+    def rank(computed, skipped):
+        return {"trace": {"steps": 3, "counters": {"tiles": {
+            "computed": computed, "skipped": skipped}}}}
+    assert read({"ranks": [rank(36.0, 28.0)]}) == 43.75
+    assert read({"ranks": [rank(3.0, 1.0), rank(6.0, 2.0)]}) == 25.0
+    assert read({"ranks": [rank(6.0, 0.0)]}) == 0.0
+
+
+def test_traced_run_holds_by_span_and_counters():
+    """A traced run's rank result holds ``by_span`` for its own trace and,
+    by step, the program counters its readers declare; its line holds the
+    attribution by span."""
     import torch
-    from trainbench import harness, span_run
+    from trainbench import harness
     from trainbench.tests import tiny
-    monkeypatch.setattr(trace, "reduce", trace.reduce)
-    span_run._wrap_reduce()
     c = tiny.cell("granite-3-8b-8L", seq_len=16)
-    res = harness.run(c, 2 ** 31 + 9, 0.05, True, torch.device("cpu"),
+    c["per_layer"] = [{"name": "attention_tile_skip", "unit": "%"}]
+    res = harness.run(c, 2 ** 31 + 13, 0.05, True, torch.device("cpu"),
                       t_start=0.0)
     tr = res["trace"]
-    assert {"busy_s", "kernels", "idle_gaps", "by_span",
-            "f32_products"} <= set(tr)
-    assert tr["by_span"]["total_s"] == 0 and tr["by_span"]["spans"] == {}
-    summary = span_run._rank_summary(res)
-    assert summary["steps"] == tr["steps"] and summary["device_s"] == 0
+    assert {"busy_s", "kernels", "idle_gaps", "by_span"} <= set(tr)
+    got = tr["by_span"]
+    assert {"total_s", "spans", "unattributed", "idle_gaps"} <= set(got)
+    # on the CPU the trace has host events alone: nothing to put down
+    assert got["total_s"] == 0 and got["spans"] == {}
+    assert got["f32_products"] == {} and got["seconds"] >= 0
+    assert span_trace.summary(res)["device_s"] == 0
+    # one tile a call: 2 layers' forward, recompute and backward a step
+    assert tr["counters"] == {"tiles": {"computed": 6.0, "skipped": 0.0}}
+    assert res["traffic_bytes_per_step"]["all_reduce"] == 0
+    # the line carries each rank's summary, and the compared numbers last
+    res["device"] = "cpu"
+    out = run.assemble(c, [res], True)
+    assert out["spans"] == [span_trace.summary(res)]
+    assert out["metrics"] == {"attention_tile_skip": {"value": 0.0,
+                                                      "unit": "%"}}
+    assert {"device_by_span", "idle_gaps_by_span"} <= set(out["breakdown"])
+    assert list(out)[-1] == "checks"
+
+
+@pytest.mark.parametrize("counters, said", [
+    ({"tiles": "numpy:random"}, "repro_torch"),
+    ({"tiles": "repro_torch.dist.process_group:traffic"}, "named"),
+])
+def test_counters_are_the_programs(tmp_path, monkeypatch, counters, said):
+    """A reader may name only a counter of the program, and one key one
+    counter."""
+    from trainbench import harness
+    (tmp_path / "metrics").mkdir()
+    for name, got in (("a_reader", counters), ("b_reader", {
+            "tiles": "repro_torch.models.attention:tiles"})):
+        (tmp_path / "metrics" / f"{name}.py").write_text(
+            f"COUNTERS = {got!r}\n\ndef read(ctx):\n    return None\n")
+    monkeypatch.setattr(harness, "HERE", tmp_path)
+    harness._program()
+    with pytest.raises(SystemExit, match=said):
+        harness.program_counters([{"name": "b_reader"},
+                                  {"name": "a_reader"}])

@@ -7,7 +7,7 @@ import json
 import pytest
 import torch
 
-from trainbench import flops, harness, trace
+from trainbench import harness, trace
 from trainbench.reference import model as ref_model
 from trainbench.tests import tiny
 
@@ -21,8 +21,8 @@ def _program_count(c):
     model = c["config"]["model"]
     cfg = harness.model_config(P, model)
     S, rows = c["traffic"]["seq_len"], 4
-    params = {k: torch.empty(s, device="meta")
-              for k, s in ref_model.param_shapes(model).items()}
+    params = {k: torch.empty(s, device="meta") for k, s in
+              harness.family_of(c).param_shapes(model).items()}
     from trainbench import inputs
     params = inputs.nest(params)
     batch = {"tokens": torch.zeros(rows, 1, S, dtype=torch.long,
@@ -52,10 +52,11 @@ def test_flops_against_the_programs_count(config):
     terms."""
     c = tiny.cell(config, seq_len=64)
     model = c["config"]["model"]
+    fam = harness.family_of(c)
     got, rows = _program_count(c)
     S = c["traffic"]["seq_len"]
-    mine = flops.step_flops(model, S, rows)
-    mm = 6.0 * flops.matmul_params(model) * S * rows
+    mine = fam.step_flops(model, S, rows)
+    mm = 6.0 * fam.matmul_params(model) * S * rows
     pad = 6.0 * model["d_model"] * (ref_model.padded_vocab(
         model["vocab_size"]) - model["vocab_size"]) * S * rows
     extra_prog = got - mm - pad
